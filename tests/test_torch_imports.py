@@ -1,0 +1,81 @@
+"""The PyTorch port imports no JAX, nothing of the JAX package and no PIL,
+and its entry points refuse to fall back to the CPU without a card."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MODULES = (
+    "objectdetection_ssd_torch",
+    "objectdetection_ssd_torch.config",
+    "objectdetection_ssd_torch.device",
+    "objectdetection_ssd_torch.ops.priors",
+    "objectdetection_ssd_torch.ops.boxes",
+    "objectdetection_ssd_torch.models.layers",
+    "objectdetection_ssd_torch.models.backbones",
+    "objectdetection_ssd_torch.models.ssd",
+    "objectdetection_ssd_torch.models.convert",
+    "objectdetection_ssd_torch.infer.nms_cuda",
+    "objectdetection_ssd_torch.infer.postprocess",
+    "objectdetection_ssd_torch.infer.detector",
+    "objectdetection_ssd_torch.data.pipeline",
+)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
+             "objectdetection_ssd_tpu", "PIL")
+
+
+def test_port_imports_no_jax_no_reference_package_no_pil():
+    # A fresh interpreter: this process already imported jax (conftest).
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_silent_cpu_fallback_without_cuda(monkeypatch):
+    from objectdetection_ssd_torch.config import Config, ModelConfig
+    from objectdetection_ssd_torch.device import resolve_device
+    from objectdetection_ssd_torch.infer.detector import Detector
+    from objectdetection_ssd_torch.models.ssd import build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Detector(Config(), {})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(ModelConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_unported_options_raise():
+    from objectdetection_ssd_torch.config import (Config, ModelConfig,
+                                                  PostprocessConfig)
+    from objectdetection_ssd_torch.infer.detector import Detector
+    from objectdetection_ssd_torch.infer.postprocess import postprocess
+    from objectdetection_ssd_torch.models.ssd import build_model
+    from objectdetection_ssd_torch.ops.priors import priors_for_model
+
+    with pytest.raises(NotImplementedError):
+        build_model(ModelConfig(backbone="resnet34"), device="cpu")
+    with pytest.raises(NotImplementedError):
+        priors_for_model(ModelConfig(backbone="resnet34"))
+    with pytest.raises(NotImplementedError):
+        postprocess(torch.zeros(1, 4, 4), torch.zeros(1, 4, 21),
+                    torch.zeros(4, 4),
+                    PostprocessConfig(nms_method="soft_gaussian"))
+    with pytest.raises(NotImplementedError):
+        Detector(Config(), {}, PostprocessConfig(tta_flip=True),
+                 device="cpu")
