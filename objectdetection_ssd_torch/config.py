@@ -1,11 +1,13 @@
 """Typed configuration for the PyTorch port.
 
 A copy of the constants and the dataclass fields of
-`objectdetection_ssd_tpu/config.py` that the serving path reads.  The port
-keeps its own copy because it must not import the JAX package (whose
-``__init__`` imports JAX).  Fields that only steer the TPU compiler
-(``scoped_vmem_limit_kib``) or a JAX loop form (``nms_unrolled``,
+`objectdetection_ssd_tpu/config.py` that the serving path and the train
+step read.  The port keeps its own copy because it must not import the JAX
+package (whose ``__init__`` imports JAX).  Fields that only steer the TPU
+compiler (``scoped_vmem_limit_kib``) or a JAX loop form (``nms_unrolled``,
 ``approx_recall_target``) are left out: they have no counterpart here.
+Gradient accumulation (``OptimConfig.grad_accum_steps``) and the
+``TrainConfig`` knobs (EMA, remat) are not ported yet.
 """
 
 from __future__ import annotations
@@ -71,10 +73,42 @@ class ModelConfig:
     num_classes: int = NUM_CLASSES_WITH_BG
     # conv4_3 L2-norm rescale initial value (reference `Model.py:133`).
     l2_norm_scale_init: float = 20.0
-    # Compute dtype of the conv stack ("float32" or "bfloat16").  The
-    # parameters are held in this dtype on the device, which rounds them
-    # once exactly as flax's ``dtype=`` casts them at every use.
+    # VGG-16 variant: freeze the first N conv stages (1=conv1 .. 5=whole
+    # trunk incl. fc6/fc7): a detach at the stage boundary, and the frozen
+    # parameters get neither an update nor weight decay.
+    freeze_stages: int = 0
+    # Compute dtype of the conv stack ("float32" or "bfloat16").  Every conv
+    # casts its weight and bias, and the L2Norm its scale, to the compute
+    # dtype at use, as flax's ``dtype=`` does.  The serving model holds its
+    # parameters in this dtype (the casts are then no-ops); the train model
+    # holds them in f32.
     compute_dtype: str = "float32"
+    # VGG trunk convs (e.g. "conv1_2") whose filter gradient runs on the
+    # hand-written CUDA kernel K2 (`ops/dw_cuda.py`) during training; the
+    # JAX package routes the same names through its Pallas kernel.  Only
+    # 3x3/stride-1/pad-1 convs take the route.  Default () = cuDNN always.
+    dw_pallas_convs: Sequence[str] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Multibox loss knobs (reference `Losses.py:136-199`)."""
+
+    match_iou_threshold: float = 0.5   # bg below this (`Losses.py:171`)
+    neg_pos_ratio: int = 3             # hard negatives (`Losses.py:189`)
+    # The reference calls its loc loss `smooth_l1` but instantiates plain
+    # nn.L1Loss (`Losses.py:147`).  L1 for parity; huber is opt-in.
+    loc_loss: str = "l1"               # "l1" | "huber"
+    # Encode variance conventions as the reference writes them: /10 for
+    # centers, *5 for sizes (`Util.py:86-102`).
+    center_variance_inv: float = 10.0
+    size_variance_inv: float = 5.0
+    # Hard-negative mining needs only the SUM of each image's top
+    # 3*N_pos negative CE values (`Losses.py:188-195`): rank the top
+    # `hnm_topk` candidates with a partial top-k, and take the exact full
+    # sort whenever any image needs more than `hnm_topk` negatives.  Both
+    # branches sum the same multiset.  0 = always the full sort.
+    hnm_topk: int = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +138,24 @@ class PostprocessConfig:
     nms_method: str = "hard"
     soft_nms_sigma: float = 0.5
     tta_flip: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """SGD setup (reference `train.py:53-57`)."""
+
+    lr: float = 1e-4
+    bias_lr_multiplier: float = 2.0    # 2x lr for biases (`train.py:54`)
+    momentum: float = 0.9
+    weight_decay: float = 5e-4
+    # StepLR(step_size=7, gamma=0.1), stepped for real on an epoch clock
+    # (the reference constructs it and never steps it: parity mode turns
+    # it off).
+    lr_decay_epochs: int = 7
+    lr_decay_gamma: float = 0.1
+    use_lr_schedule: bool = True
+    # Linear lr warmup over the first N updates (0 = off).
+    warmup_steps: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

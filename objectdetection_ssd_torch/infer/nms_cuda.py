@@ -9,30 +9,21 @@ raises if that fails); on a CPU tensor it runs the plain version,
 `greedy_nms_mask` over `pairwise_iou`.  Nothing falls back from one to the
 other.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface on its first use, cached under ``_build/`` by the
-hash of its source and flags, and loaded with ``ctypes``.
+The kernel is built by `cuda_build` (``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, loaded with ``ctypes``) on its first use.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional
 
 import torch
 
+from objectdetection_ssd_torch import cuda_build
 from objectdetection_ssd_torch.ops.boxes import pairwise_iou
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "nms.cu"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+SOURCE = cuda_build.CSRC_DIR / "nms.cu"
 MAX_K = 256
 
 # Kernel launches since the last reset (the plain CPU path does not count).
@@ -60,55 +51,18 @@ def greedy_nms_mask(iou: torch.Tensor, valid: torch.Tensor,
     return valid & ~suppress
 
 
-def _nvcc() -> str:
-    """nvcc from PATH, else from the toolkit PyTorch's builder finds."""
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the NMS kernel cannot be built")
-
-
-def library_path() -> Path:
-    """Where the library for this source and flag set is (to be) built."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libnms_{digest}.so"
-
-
 def build() -> ctypes.CDLL:
-    """Compile (once per source and flag set) and load the kernel library.
-
-    The compiler's output, with ``-Xptxas=-v``'s register and shared-memory
-    report, is kept beside the library as ``<name>.log``.
-    """
+    """Compile (once per source and flag set) and load the kernel library."""
     global _lib
-    if _lib is not None:
-        return _lib
-    out = library_path()
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)],
-                              capture_output=True, text=True, timeout=600)
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    lib.ssd_nms_keep.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.c_void_p, ctypes.c_longlong,
-                                 ctypes.c_int, ctypes.c_float,
-                                 ctypes.c_void_p]
-    lib.ssd_nms_keep.restype = ctypes.c_int
-    lib.ssd_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.ssd_cuda_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+    if _lib is None:
+        lib = cuda_build.load(SOURCE)
+        lib.ssd_nms_keep.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_void_p, ctypes.c_longlong,
+                                     ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_void_p]
+        lib.ssd_nms_keep.restype = ctypes.c_int
+        _lib = lib
+    return _lib
 
 
 def _check(cand_boxes: torch.Tensor, valid: torch.Tensor) -> None:
@@ -154,8 +108,6 @@ def greedy_nms_keep(cand_boxes: torch.Tensor, valid: torch.Tensor,
         err = lib.ssd_nms_keep(cand_boxes.data_ptr(), valid.data_ptr(),
                                keep.data_ptr(), num_sets, k,
                                float(iou_threshold), stream)
-    if err != 0:
-        raise RuntimeError("ssd_nms_keep launch failed: "
-                           + lib.ssd_cuda_error_string(err).decode())
+    cuda_build.check(lib, err, "ssd_nms_keep")
     launches += 1
     return keep

@@ -3,8 +3,10 @@
 The JAX package works NHWC and gives every conv and pool explicit symmetric
 padding so that the SSD300 pyramid follows torch's output-size arithmetic.
 Here the layers are torch's own, in NCHW (``channels_last`` memory on the
-card); what this module adds is the flax initialisers, the L2Norm
-arithmetic and the NHWC head flatten.
+card); what this module adds is the flax initialisers, flax's ``dtype=``
+casts (each conv computes in its input's dtype, casting its weight and
+bias at use), the routing of a conv's filter gradient through kernel K2,
+the L2Norm arithmetic and the NHWC head flatten.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from objectdetection_ssd_torch.ops.dw_cuda import conv3x3p1
 
 # flax's truncated-normal stddev correction: the std of a unit normal cut to
 # [-2, 2] (`jax.nn.initializers.variance_scaling`).
@@ -28,16 +32,38 @@ class TorchConv(nn.Conv2d):
     ``"lecun_normal"`` (flax's default, the VGG trunk) or
     ``"xavier_uniform"`` (extra pyramid and heads, reference
     `Model.py:198-200`).  Biases start at zero.
+
+    The conv computes in its input's dtype: the weight and bias are cast to
+    it at use (no-ops when they already are), which is flax's ``dtype=``
+    for a model whose parameters stay f32.
+
+    ``dw_pallas``: route the filter gradient through kernel K2
+    (`ops/dw_cuda.py:Conv3x3P1`), as the JAX `TorchConv(dw_pallas=True)`
+    routes it through its Pallas kernel.  Only 3x3/stride-1/pad-1/
+    dilation-1 geometry takes the route; other geometry stays on the plain
+    conv.  Either way the parameters are ``weight`` and ``bias``, so a
+    ``state_dict`` loads into both.
     """
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
-                 kernel_init: str = "lecun_normal"):
+                 kernel_init: str = "lecun_normal", dw_pallas: bool = False):
         if kernel_init not in ("lecun_normal", "xavier_uniform"):
             raise ValueError(f"unknown kernel_init {kernel_init!r}")
         self.kernel_init = kernel_init
+        self.dw_route = dw_pallas and (kernel, stride, padding, dilation) \
+            == (3, 1, 1, 1)
         super().__init__(in_features, features, kernel, stride=stride,
                          padding=padding, dilation=dilation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight = self.weight.to(x.dtype)
+        bias = self.bias.to(x.dtype)
+        if self.dw_route:
+            # The bias is added outside the Function, as the JAX
+            # `_DWPallasConv` adds it (`layers.py:160-162`).
+            return conv3x3p1(x, weight) + bias[:, None, None]
+        return self._conv_forward(x, weight, bias)
 
     def reset_parameters(self,
                          generator: Optional[torch.Generator] = None) -> None:

@@ -17,7 +17,7 @@ anchor)-major and concatenated in tap order -> 8732 rows aligned with
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,32 +43,45 @@ _EXTRAS = (("seq8", 1024, 256, 512, 2, 1),     # 19 -> 10
            ("seq11", 256, 128, 256, 1, 0))     # 3 -> 1 (VALID)
 
 
-def prepare_input(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """uint8 RGB NHWC -> ImageNet-normalized NCHW activations in ``dtype``.
+def normalize_uint8(x: torch.Tensor) -> torch.Tensor:
+    """uint8 RGB NHWC -> ImageNet-normalized f32 NHWC, computed in f32 as
+    ``(x * (1/255) - mean) / std`` (a multiply by the reciprocal, as
+    `models/ssd.py:58-62` writes it); float inputs are taken as already
+    normalized and pass through."""
+    if x.dtype != torch.uint8:
+        return x
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+    return (x.float() * (1.0 / 255.0) - mean) / std
 
-    uint8 is normalized in f32 as ``(x * (1/255) - mean) / std`` (a multiply
-    by the reciprocal, as `models/ssd.py:58-62` writes it) before the cast;
-    float inputs are taken as already normalized.  The permute gives an NCHW
-    view with ``channels_last`` strides, without a copy.
+
+def prepare_input(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """uint8 RGB NHWC -> ImageNet-normalized NCHW activations in ``dtype``
+    (`normalize_uint8`, then the cast).  The permute gives an NCHW view with
+    ``channels_last`` strides, without a copy.
     """
-    if x.dtype == torch.uint8:
-        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
-                            device=x.device)
-        std = torch.tensor(IMAGENET_STD, dtype=torch.float32,
-                           device=x.device)
-        x = (x.float() * (1.0 / 255.0) - mean) / std
-    return x.to(dtype).permute(0, 3, 1, 2)
+    return normalize_uint8(x).to(dtype).permute(0, 3, 1, 2)
 
 
 class SSD300(nn.Module):
-    """VGG-16 SSD300.  (B, 300, 300, 3) -> ((B, 8732, 4), (B, 8732, C))."""
+    """VGG-16 SSD300.  (B, 300, 300, 3) -> ((B, 8732, 4), (B, 8732, C)).
+
+    The network computes in ``dtype``, whatever dtype its parameters are
+    held in (flax's ``dtype=``).  ``freeze_stages`` and ``dw_pallas_convs``
+    go to the trunk (`VGG16Trunk`).
+    """
 
     def __init__(self, num_classes: int = NUM_CLASSES_WITH_BG,
                  l2_norm_scale_init: float = 20.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32,
+                 freeze_stages: int = 0,
+                 dw_pallas_convs: Sequence[str] = ()):
         super().__init__()
         self.num_classes = num_classes
-        self.trunk = VGG16Trunk()
+        self.dtype = dtype
+        self.trunk = VGG16Trunk(freeze_stages=freeze_stages,
+                                dw_pallas_convs=tuple(dw_pallas_convs))
         self.l2norm_4_3 = L2Norm(512, scale_init=l2_norm_scale_init)
         for name, cin, mid, out, stride, padding in _EXTRAS:
             self.add_module(f"{name}_1", TorchConv(
@@ -92,10 +105,6 @@ class SSD300(nn.Module):
             if isinstance(m, TorchConv):
                 m.reset_parameters(generator)
         self.l2norm_4_3.reset_parameters()
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.l2norm_4_3.scale.dtype
 
     def forward(self, images: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -122,10 +131,16 @@ def ssd300_post_trunk(model: SSD300, conv4_3: torch.Tensor, x: torch.Tensor
 
 
 def build_model(config: ModelConfig, device: DeviceLike = None,
-                generator: Optional[torch.Generator] = None) -> SSD300:
-    """Model registry keyed on ``config.backbone``: the model in eval mode
-    on ``device`` (default ``cuda``), in the compute dtype, ``channels_last``,
-    with weights drawn from ``generator``."""
+                generator: Optional[torch.Generator] = None,
+                train: bool = False) -> SSD300:
+    """Model registry keyed on ``config.backbone``: the model on ``device``
+    (default ``cuda``), ``channels_last``, computing in the compute dtype,
+    with weights drawn from ``generator``.
+
+    For serving (``train=False``) the model is in eval mode and holds its
+    parameters in the compute dtype.  For training it is in train mode and
+    holds them in f32; each layer casts them to the compute dtype at use.
+    """
     dev = resolve_device(device)
     if config.backbone == "resnet34":
         raise NotImplementedError(
@@ -134,8 +149,12 @@ def build_model(config: ModelConfig, device: DeviceLike = None,
         raise ValueError(f"unknown backbone: {config.backbone!r}")
     if config.compute_dtype not in _DTYPES:
         raise ValueError(f"unsupported compute dtype {config.compute_dtype!r}")
+    dtype = _DTYPES[config.compute_dtype]
     model = SSD300(num_classes=config.num_classes,
                    l2_norm_scale_init=config.l2_norm_scale_init,
-                   generator=generator)
-    return model.to(device=dev, dtype=_DTYPES[config.compute_dtype],
-                    memory_format=torch.channels_last).eval()
+                   generator=generator, dtype=dtype,
+                   freeze_stages=config.freeze_stages,
+                   dw_pallas_convs=config.dw_pallas_convs)
+    model = model.to(device=dev, dtype=torch.float32 if train else dtype,
+                     memory_format=torch.channels_last)
+    return model.train(train)

@@ -14,8 +14,12 @@ MODULES = (
     "objectdetection_ssd_torch",
     "objectdetection_ssd_torch.config",
     "objectdetection_ssd_torch.device",
+    "objectdetection_ssd_torch.cuda_build",
     "objectdetection_ssd_torch.ops.priors",
     "objectdetection_ssd_torch.ops.boxes",
+    "objectdetection_ssd_torch.ops.matching",
+    "objectdetection_ssd_torch.ops.dw_cuda",
+    "objectdetection_ssd_torch.losses.multibox",
     "objectdetection_ssd_torch.models.layers",
     "objectdetection_ssd_torch.models.backbones",
     "objectdetection_ssd_torch.models.ssd",
@@ -24,6 +28,8 @@ MODULES = (
     "objectdetection_ssd_torch.infer.postprocess",
     "objectdetection_ssd_torch.infer.detector",
     "objectdetection_ssd_torch.data.pipeline",
+    "objectdetection_ssd_torch.train.state",
+    "objectdetection_ssd_torch.train.loop",
 )
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
              "objectdetection_ssd_tpu", "PIL")
@@ -45,16 +51,24 @@ def test_port_imports_no_jax_no_reference_package_no_pil():
 
 
 def test_no_silent_cpu_fallback_without_cuda(monkeypatch):
-    from objectdetection_ssd_torch.config import Config, ModelConfig
+    from objectdetection_ssd_torch.config import (Config, ModelConfig,
+                                                  OptimConfig)
     from objectdetection_ssd_torch.device import resolve_device
     from objectdetection_ssd_torch.infer.detector import Detector
     from objectdetection_ssd_torch.models.ssd import build_model
+    from objectdetection_ssd_torch.train.state import create_train_state
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Detector(Config(), {})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(ModelConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(ModelConfig(), train=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_train_state(ModelConfig(), OptimConfig())
+    state = create_train_state(ModelConfig(), OptimConfig(), device="cpu")
+    assert next(state.model.parameters()).device == torch.device("cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
