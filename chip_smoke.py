@@ -7,9 +7,11 @@ routed convs, and times both paths.
 
     python3 chip_smoke.py          # from the repo root, one card, nvcc
 
-Phases, one line each: device, build, K1 vs plain, K2 vs plain, the
-serving slice, serving timing, the train slice, the frozen-conv1 step,
-train timing.  Then one JSON line with each kernel's numbers, the card's
+Phases, one line each: device, build (each kernel's registers and
+spills; a spill fails), K1 vs plain, K2 vs plain, the serving slice,
+serving timing, the train slice, the frozen-conv1 step, train timing
+(with a bf16 routed-vs-unrouted gradient check and a profile of both
+steps).  Then one JSON line with each kernel's numbers, the card's
 name and power limit as nvidia-smi gives them, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
 that line.  Without CUDA it exits 1 at once.  It imports no JAX.
@@ -17,8 +19,10 @@ that line.  Without CUDA it exits 1 at once.  It imports no JAX.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -33,7 +37,10 @@ TIMING_BATCH = 256
 NMS_SHAPES = ((256, 20, 64), (8, 20, 200))   # serving K, exact-eval K
 THR = 0.45
 # K2 shapes (N, H, W, Cin, Cout): conv1_1, conv1_2, conv2_1, conv2_2 of
-# SSD300 at the train slice's batch, and one ragged shape.
+# SSD300 at the train slice's batch, one ragged shape (the tap-gather
+# kernel in both dtypes), and one whose W is not a multiple of the halo
+# tile's 32 and whose Cin, Cout are multiples of 8 but not of 64 (the halo
+# kernel in bf16).
 ROUTED = ("conv1_1", "conv1_2", "conv2_1", "conv2_2")
 TRAIN_BATCH = 2
 TRAIN_STEPS = 3
@@ -46,7 +53,10 @@ def dw_shapes(batch: int) -> tuple:
             (batch, 150, 150, 64, 128), (batch, 150, 150, 128, 128))
 
 
-DW_SHAPES = dw_shapes(TRAIN_BATCH) + ((3, 37, 41, 5, 7),)
+DW_SHAPES = dw_shapes(TRAIN_BATCH) + ((3, 37, 41, 5, 7), (2, 19, 45, 24, 40))
+# bf16 shapes that K2 also gets as views one element past a 16-byte
+# boundary: the plan then takes the tap gather with one-element loads.
+DW_UNALIGNED = ((2, 19, 45, 24, 40),)
 # K2 vs its plain version, relative to max|dW|.  The products are exact in
 # both (f32 x f32 in f32 FMAs, bf16 x bf16 exact in the tensor cores' f32
 # accumulators); only the order of the f32 sums differs, which leaves
@@ -69,6 +79,14 @@ TRAIN_DELTA_TOL = 5e-2
 # K2 vs cuDNN's wgrad in the same f32 step on the card: the same forward
 # and upstream gradients, another order of the f32 sums.
 WGRAD_TOL = 1e-4
+# The same comparison in one bf16 step at the timing batch: both dW are
+# rounded to bf16 (the Function casts K2's f32 dW to the weight's dtype,
+# cuDNN writes bf16), 2^-9 of max|dW| each, and the forward differs by the
+# routed convs' separate bias add: 1e-2 of max|dW| (measured by this
+# script on an H100 80GB HBM3 at 700 W: 1.4e-3 at conv1_1 to 6.4e-3 at
+# conv2_2).
+BF16_WGRAD_TOL = 1e-2
+PROFILE_STEPS = 3
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, non-tensor f32,
 # dense bf16 tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -236,28 +254,46 @@ def phase_slice(device, state_dict, batches=SERVE_BATCHES,
             "suppressed": n_suppressed, "card_vs_cpu_rel": rel}
 
 
-def phase_dw_vs_plain(device, shapes=DW_SHAPES, seed: int = SEED) -> list:
+def unaligned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts one element past the start
+    of its storage."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return out.view(t.shape).copy_(t)
+
+
+def phase_dw_vs_plain(device, shapes=DW_SHAPES, unaligned=DW_UNALIGNED,
+                      seed: int = SEED) -> list:
     """K2 against its plain version on the same card tensors, in f32 and
-    bf16, at ``shapes``; fails past `DW_TOL`."""
+    bf16, at ``shapes``, and in bf16 on unaligned views at ``unaligned``;
+    fails past `DW_TOL`, or if a second run does not give the same bits."""
     from objectdetection_ssd_torch.ops import dw_cuda
     gen = torch.Generator().manual_seed(seed + 3)
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for n, h, w, cin, cout in shapes:
-            x = torch.randn(n, h, w, cin, generator=gen).relu()
-            g = torch.randn(n, h, w, cout, generator=gen) * 1e-3
-            x, g = x.to(device, dtype), g.to(device, dtype)
-            kern = dw_cuda.dw_conv3x3p1(x, g)
-            plain = dw_cuda.dw_conv3x3p1_plain(x, g)
-            err = float((kern - plain).abs().max())
-            scale = float(plain.abs().max())
-            rel = err / scale
-            if not (scale > 0 and math.isfinite(err) and rel <= DW_TOL[dtype]):
-                fail(f"K2 {dtype} {(n, h, w, cin, cout)}: {rel:.3e} of "
-                     f"max|dW| {scale:.3e} differs from the plain version")
-            rows.append({"dtype": str(dtype).replace("torch.", ""),
-                         "shape": [n, h, w, cin, cout], "max_abs_err": err,
-                         "scale": scale, "rel": rel, "tol": DW_TOL[dtype]})
+    cases = [(dtype, shape, True)
+             for dtype in (torch.float32, torch.bfloat16) for shape in shapes]
+    cases += [(torch.bfloat16, shape, False) for shape in unaligned]
+    for dtype, (n, h, w, cin, cout), aligned in cases:
+        x = torch.randn(n, h, w, cin, generator=gen).relu()
+        g = torch.randn(n, h, w, cout, generator=gen) * 1e-3
+        x, g = x.to(device, dtype), g.to(device, dtype)
+        if not aligned:
+            x, g = unaligned_copy(x), unaligned_copy(g)
+        kern = dw_cuda.dw_conv3x3p1(x, g)
+        if not torch.equal(kern, dw_cuda.dw_conv3x3p1(x, g)):
+            fail(f"K2 {dtype} {(n, h, w, cin, cout)}: two runs differ")
+        plain = dw_cuda.dw_conv3x3p1_plain(x, g)
+        err = float((kern - plain).abs().max())
+        scale = float(plain.abs().max())
+        rel = err / scale
+        if not (scale > 0 and math.isfinite(err) and rel <= DW_TOL[dtype]):
+            fail(f"K2 {dtype} {(n, h, w, cin, cout)}: {rel:.3e} of "
+                 f"max|dW| {scale:.3e} differs from the plain version")
+        rows.append({"dtype": str(dtype).replace("torch.", ""),
+                     "kernel": dw_cuda.plan(n, h, w, cin, cout, dtype,
+                                            aligned).kernel,
+                     "aligned": aligned,
+                     "shape": [n, h, w, cin, cout], "max_abs_err": err,
+                     "scale": scale, "rel": rel, "tol": DW_TOL[dtype]})
     return rows
 
 
@@ -424,12 +460,95 @@ def dw_bound_ms(n: int, h: int, w: int, cin: int, cout: int,
     return bound + (ops_ms, bytes_ms, flop, nbytes)
 
 
+def ptxas_rows(source) -> list:
+    """`cuda_build.ptxas_report` of ``source``'s build log."""
+    from objectdetection_ssd_torch import cuda_build
+    return cuda_build.ptxas_report(cuda_build.library_path(
+        source).with_suffix(".log").read_text())
+
+
+def short_name(function: str) -> str:
+    """A mangled kernel name without its namespace and parameter list:
+    ``dw_partial_kernelI13__nv_bfloat16Li1ELi8ELb1EE``."""
+    m = re.search(r"(?:dw|nms)_[a-z_]*kernel(?:I\w*?EE)?", function)
+    return m.group(0) if m else function
+
+
+def kernel_ptxas(rows: list, plan, dtype) -> dict:
+    """The build log's row of the pass-1 kernel that ``plan`` launches: the
+    halo kernel, or the tap-gather instantiation
+    ``dw_partial_kernel<T, vec_a, vec_b, staged>`` by its mangled name."""
+    if plan.kernel == "halo":
+        symbol = "dw_halo_kernel"
+    else:
+        ctype = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
+        symbol = (f"dw_partial_kernelI{ctype}Li{plan.vec_a}ELi{plan.vec_b}"
+                  f"ELb{int(plan.staged)}EE")
+    found = [r for r in rows if symbol in r["function"]]
+    if len(found) != 1:
+        fail(f"{len(found)} kernels named {symbol} in the build log")
+    return found[0]
+
+
+def bf16_wgrad_check(dev, batch: dict, priors, init_sd) -> dict:
+    """One bf16 step from ``init_sd`` on ``batch``, routed through K2 and
+    unrouted (cuDNN's wgrad): each routed conv's weight gradient, K2's
+    against cuDNN's, relative to cuDNN's max|dW|; fails past
+    `BF16_WGRAD_TOL`."""
+    from objectdetection_ssd_torch.config import ModelConfig
+    grads = {}
+    for key, convs in (("k2", ROUTED), ("cudnn", ())):
+        cfg = ModelConfig(compute_dtype="bfloat16", dw_pallas_convs=convs)
+        st, _ = _train_run(dev, cfg, init_sd, [batch], priors)
+        grads[key] = {n: st.model.trunk.get_submodule(n).weight.grad.clone()
+                      for n in ROUTED}
+        del st
+    rel = {n: float((grads["k2"][n] - grads["cudnn"][n]).abs().max()
+                    / grads["cudnn"][n].abs().max()) for n in ROUTED}
+    if not max(rel.values()) <= BF16_WGRAD_TOL:
+        fail(f"bf16 step: K2 vs cuDNN wgrad differ by {rel}")
+    return rel
+
+
+def profile_steps(states: dict, batch: dict, priors,
+                  steps: int = PROFILE_STEPS) -> dict:
+    """One `torch.profiler` pass over ``steps`` train steps of each state
+    in turn.  Per configuration: device ms per step of each device
+    operation (kernel, copy or set) by name, their sum, the device ms per
+    step under each aten operator (nested operators each count their
+    children's), and the host's ms per step under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from objectdetection_ssd_torch.train.loop import train_step
+    out = {}
+    for key, state in states.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                train_step(state, batch, priors)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        events = prof.key_averages()
+        ops = {e.key: e.self_device_time_total / steps / 1e3
+               for e in events if e.device_type != DeviceType.CPU
+               and e.self_device_time_total > 0}
+        aten = {e.key: e.device_time_total / steps / 1e3 for e in events
+                if e.device_type == DeviceType.CPU
+                and e.key.startswith("aten::") and e.device_time_total > 0}
+        out[key] = {"ops": ops, "aten": aten, "device_ms": sum(ops.values()),
+                    "wall_ms": wall_s / steps * 1e3}
+    return out
+
+
 def phase_train_timing(batch: int = TIMING_TRAIN_BATCH) -> dict:
     """bf16 train steps at ``batch`` with the four convs routed and with
     dw_pallas_convs=(): 4 windows of 10 steps each, in turns (routed,
     plain, plain, routed, twice), the median window per configuration;
-    then K2, its plain version and cuDNN's wgrad at each routed conv's
-    shape."""
+    a profile of both; one step of each from the same weights, whose
+    routed weight gradients are held against cuDNN's; then K2, its plain
+    version and cuDNN's wgrad at each routed conv's shape."""
     from objectdetection_ssd_torch.config import ModelConfig, OptimConfig
     from objectdetection_ssd_torch.ops import dw_cuda
     from objectdetection_ssd_torch.ops.priors import ssd300_priors
@@ -459,7 +578,10 @@ def phase_train_timing(batch: int = TIMING_TRAIN_BATCH) -> dict:
         torch.cuda.synchronize()
         step_s[key].append((time.perf_counter() - t0) / n_iters)
     launches_per_step = dw_cuda.launches / (len(step_s["routed"]) * n_iters)
+    prof = profile_steps(states, b, priors)
     del states
+    wgrad_rel = bf16_wgrad_check(dev, b, priors, init_sd)
+    k2_ptxas = ptxas_rows(dw_cuda.SOURCE)
 
     rows = []
     k2gen = torch.Generator(device=dev).manual_seed(SEED + 7)
@@ -482,7 +604,11 @@ def phase_train_timing(batch: int = TIMING_TRAIN_BATCH) -> dict:
             xn, (cout, cin, 3, 3), gn, padding=1), iters=20)
         bound_ms, bound_by, ops_ms, bytes_ms, flop, nbytes = dw_bound_ms(
             n, h, w, cin, cout, 2)
-        rows.append({"conv": conv, "shape": [n, h, w, cin, cout], "ms": ms,
+        plan = dw_cuda.plan(n, h, w, cin, cout, torch.bfloat16)
+        rows.append({"conv": conv, "shape": [n, h, w, cin, cout],
+                     "kernel": plan.kernel, "plan": plan._asdict(),
+                     "ptxas": kernel_ptxas(k2_ptxas, plan, torch.bfloat16),
+                     "ms": ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "ops_ms": ops_ms, "bytes_ms": bytes_ms,
@@ -496,7 +622,8 @@ def phase_train_timing(batch: int = TIMING_TRAIN_BATCH) -> dict:
             "plain_step_ms": mid["plain"] * 1e3,
             "step_ms_range": {key: [min(v) * 1e3, max(v) * 1e3]
                               for key, v in step_s.items()},
-            "launches_per_step": launches_per_step, "k2": rows}
+            "launches_per_step": launches_per_step, "k2": rows,
+            "profile": prof, "bf16_wgrad_rel": wgrad_rel}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -625,11 +752,22 @@ def main() -> int:
     dw_cuda.build()
     build_s = time.perf_counter() - t0
     for kid, src in sources.items():
-        ptxas = [ln.strip() for ln in cuda_build.library_path(
-            src).with_suffix(".log").read_text().splitlines()
-            if "registers" in ln]
-        print(f"build: {kid} {src.name}: {'; '.join(ptxas)}")
-    print(f"build: K1 and K2 in {build_s:.2f} s (parallel nvcc)")
+        rows = ptxas_rows(src)
+        print(f"build: {kid} {src.name} (-Xptxas=-v): " + "; ".join(
+            f"{short_name(r['function'])} {r['registers']} registers, "
+            f"{r['spill_stores']}/{r['spill_loads']} bytes spilled "
+            f"(stores/loads)" for r in rows))
+        spilled = [short_name(r["function"]) for r in rows
+                   if r["spill_stores"] or r["spill_loads"]]
+        if not rows or spilled:
+            fail(f"{kid}: kernels that spill registers: {spilled}")
+    k2_rows = ptxas_rows(dw_cuda.SOURCE)
+    for n, h, w, cin, cout in DW_SHAPES + dw_shapes(TIMING_TRAIN_BATCH):
+        for dtype, aligned in itertools.product(DW_TOL, (True, False)):
+            kernel_ptxas(k2_rows, dw_cuda.plan(n, h, w, cin, cout, dtype,
+                                               aligned), dtype)
+    print(f"build: K1 and K2 in {build_s:.2f} s (parallel nvcc), no "
+          f"kernel spills")
 
     worst = phase_kernel_vs_plain(device)
     print(f"kernel vs plain: K1 keep masks bit-equal on random "
@@ -637,7 +775,9 @@ def main() -> int:
 
     dw_rows = phase_dw_vs_plain(device)
     for r in dw_rows:
-        print(f"kernel vs plain: K2 {r['dtype']} {r['shape']}: max_abs_err "
+        print(f"kernel vs plain: K2 {r['dtype']} {r['shape']}"
+              f"{'' if r['aligned'] else ' unaligned'} "
+              f"({r['kernel']} kernel, same bits twice): max_abs_err "
               f"{r['max_abs_err']:.3e}, {r['rel']:.3e} of max|dW| "
               f"{r['scale']:.3e} (tolerance {r['tol']:.0e})")
     dw_worst = max(r["max_abs_err"] for r in dw_rows)
@@ -689,13 +829,52 @@ def main() -> int:
           f"dw_pallas_convs=() {tt['plain_images_per_s']:.1f} images/s "
           f"({tt['plain_step_ms']:.3f} ms/step, windows {rng['plain']}); "
           f"K2 launches per routed step {tt['launches_per_step']}")
+    print(f"train timing: one bf16 step at batch {TIMING_TRAIN_BATCH} from "
+          f"the same weights, routed vs unrouted: K2 vs cuDNN wgrad dW " +
+          ", ".join(f"{n} {v:.3e}" for n, v in tt["bf16_wgrad_rel"].items())
+          + f" of max|dW| (tolerance {BF16_WGRAD_TOL:.0e})")
+    prof = tt["profile"]
+    for key, p in prof.items():
+        top = sorted(p["ops"].items(), key=lambda kv: -kv[1])[:10]
+        print(f"profile: {key} bf16 step ({PROFILE_STEPS} steps, "
+              f"torch.profiler): device ops {p['device_ms']:.3f} ms/step, "
+              f"host {p['wall_ms']:.3f} ms/step under the profiler; top 10: "
+              + "; ".join(f"{ms:.3f} ms {name[:90]}" for name, ms in top))
+    if all(p["device_ms"] > 0 for p in prof.values()):
+        names = set(prof["routed"]["ops"]) | set(prof["plain"]["ops"])
+        diff = sorted(((prof["routed"]["ops"].get(n, 0.0)
+                        - prof["plain"]["ops"].get(n, 0.0), n)
+                       for n in names), reverse=True)
+        print(f"profile: routed minus unrouted, "
+              f"{prof['routed']['device_ms'] - prof['plain']['device_ms']:.3f}"
+              f" ms/step of device ops; most added: " + "; ".join(
+                  f"{d:+.3f} ms {n[:90]}" for d, n in diff[:6])
+              + "; most removed: " + "; ".join(
+                  f"{d:+.3f} ms {n[:90]}" for d, n in diff[-4:]))
+        names = set(prof["routed"]["aten"]) | set(prof["plain"]["aten"])
+        diff = sorted(((prof["routed"]["aten"].get(n, 0.0)
+                        - prof["plain"]["aten"].get(n, 0.0), n)
+                       for n in names), reverse=True)
+        print("profile: routed minus unrouted by aten operator (device ms "
+              "per step, children included): " + "; ".join(
+                  f"{d:+.3f} {n}" for d, n in diff[:6] + diff[-3:]))
+    else:
+        print("profile: torch.profiler recorded no device time")
     for r in tt["k2"]:
+        pl, px = r["plan"], r["ptxas"]
+        tiling = (f"tiles {pl['tile_h']}x{pl['tile_w']} px, "
+                  f"{pl['tiles_per_chunk']} per chunk"
+                  if r["kernel"] == "halo"
+                  else f"{pl['chunk_pixels']} px per chunk")
         print(f"train timing: K2 {r['conv']} {r['shape']} bf16: "
               f"{r['ms'] * 1e3:.1f} us (bound {r['bound_ms'] * 1e3:.1f} us "
               f"by {r['bound_by']}; {r['gflop']:.1f} GFLOP, "
               f"{r['mbytes']:.1f} MB), plain {r['plain_ms'] * 1e3:.1f} us, "
               f"cuDNN wgrad (library) {r['library_ms'] * 1e3:.1f} us, "
-              f"kernel vs plain {r['rel']:.3e} of max|dW|")
+              f"kernel vs plain {r['rel']:.3e} of max|dW|; {r['kernel']} "
+              f"kernel {short_name(px['function'])}, {pl['chunks']} chunks, "
+              f"{tiling}; {px['registers']} registers, "
+              f"{px['spill_stores']}/{px['spill_loads']} bytes spilled")
     k2 = tt["k2"]
     k2_ops = sum(r["ops_ms"] for r in k2)
     k2_bytes = sum(r["bytes_ms"] for r in k2)
@@ -727,8 +906,8 @@ def main() -> int:
         "bound_by": "operations" if k2_ops >= k2_bytes else "bytes",
         "library_ms": sum(r["library_ms"] for r in k2),
         "per_shape": [{key: r[key] for key in (
-            "conv", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")} for r in k2],
+            "conv", "shape", "kernel", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")} for r in k2],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

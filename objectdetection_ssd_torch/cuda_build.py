@@ -18,10 +18,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -101,3 +102,24 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} launch failed: "
                            + lib.ssd_cuda_error_string(err).decode())
+
+
+def ptxas_report(log: str) -> List[dict]:
+    """Per kernel in an ``-Xptxas=-v`` log: ``{"function", "registers",
+    "spill_stores", "spill_loads"}`` (mangled name, bytes of spills)."""
+    rows: List[dict] = []
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            rows.append({"function": entry.group(1), "registers": None,
+                         "spill_stores": None, "spill_loads": None})
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                           line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if rows and spills:
+            rows[-1]["spill_stores"] = int(spills.group(1))
+            rows[-1]["spill_loads"] = int(spills.group(2))
+        if rows and regs:
+            rows[-1]["registers"] = int(regs.group(1))
+    return rows

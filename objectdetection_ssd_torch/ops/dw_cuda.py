@@ -7,7 +7,10 @@ The port of `objectdetection_ssd_tpu/ops/dw_pallas.py`.
 ``g (N, H, W, Cout)``, both f32 or both bf16 and contiguous, and returns
 ``dW (3, 3, Cin, Cout)`` in f32.  On a CUDA tensor it launches the kernel
 (and raises if that fails); on a CPU tensor it runs the plain version,
-`dw_conv3x3p1_plain`.  Nothing falls back from one to the other.
+`dw_conv3x3p1_plain`.  Nothing falls back from one to the other.  `plan`
+picks the kernel's first pass by shape, dtype and alignment (the halo-tile
+kernel for bf16 with Cin and Cout multiples of 8 and 16-byte aligned
+tensors, else the tap gather), its instantiation and its tiling.
 
 `Conv3x3P1` is the port of the custom VJP `conv3x3p1`: its forward and dX
 are library convs (cuDNN on the card), as the JAX package left them to XLA;
@@ -18,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,10 +29,10 @@ import torch.nn.functional as F
 from objectdetection_ssd_torch import cuda_build
 
 SOURCE = cuda_build.CSRC_DIR / "dw_conv3x3.cu"
-# The kernel's tiling (csrc/dw_conv3x3.cu): a block owns a TILE_M x TILE_N
-# tile of the (9*Cin) x Cout output and a chunk of pixels, a whole number
-# of CHUNK_ALIGN pixels (the kernel steps 128 bf16 or 32 f32 pixels at a
-# time).
+# The tap-gather kernel's tiling (csrc/dw_conv3x3.cu `dw_partial_kernel`):
+# a block owns a TILE_M x TILE_N tile of the (9*Cin) x Cout output and a
+# chunk of pixels, a whole number of CHUNK_ALIGN pixels (the kernel steps
+# 128 bf16 or 32 f32 pixels at a time).
 TILE_M = TILE_N = 64
 CHUNK_ALIGN = 128
 # Blocks to aim for: 8 per SM on the H100's 132.  The chunk plan depends
@@ -37,6 +40,20 @@ CHUNK_ALIGN = 128
 # result, is the same from run to run.
 TARGET_BLOCKS = 1056
 MAX_CHUNKS = 65535
+# Up to this Cin all 9*Cin tap rows fit one tile, and the gather kernel
+# stages x in runs (`kMaxStagedCin`).
+MAX_STAGED_CIN = 7
+# The halo kernel's tiling (`dw_halo_kernel`): a block owns HALO_CI input
+# channels, HALO_CO output channels, all nine taps and a run of spatial
+# tiles of HALO_TILE (rows, columns) pixels; one block fills an SM, so one
+# wave on the H100's 132 SMs is HALO_TARGET_BLOCKS.
+HALO_CI = 64
+HALO_CO = 64
+HALO_TILE = (4, 32)
+HALO_TARGET_BLOCKS = 132
+# The partial buffer (chunks x 9*Cin x Cout f32) is kept under this where
+# one chunk fits in it, so that pass 2 stays cheap.
+MAX_PARTIAL_BYTES = 32 << 20
 
 # Kernel launches since the last reset (the plain CPU path does not count).
 launches = 0
@@ -44,6 +61,20 @@ launches = 0
 # NHWC-contiguous operands (0 when both arrive channels_last).
 layout_copies = 0
 _lib: Optional[ctypes.CDLL] = None
+
+
+class Plan(NamedTuple):
+    """How K2 runs one call (see `plan`); the C entry points launch exactly
+    this and reject what does not fit the tensors."""
+    kernel: str           # "halo" or "gather"
+    chunks: int           # partial slots, summed in order by pass 2
+    chunk_pixels: int     # gather: flat pixels per chunk (else 0)
+    vec_a: int            # gather: elements per load of x and of g, 1 or
+    vec_b: int            #   16 bytes' worth (else 0)
+    staged: bool          # gather: x staged in runs (Cin <= MAX_STAGED_CIN)
+    tile_h: int           # halo: spatial tile rows and columns (else 0)
+    tile_w: int
+    tiles_per_chunk: int  # halo: spatial tiles per chunk (else 0)
 
 
 def dw_conv3x3p1_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -59,16 +90,49 @@ def dw_conv3x3p1_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.stack(taps).reshape(3, 3, cin, cout)
 
 
+def _max_chunks(cin: int, cout: int) -> int:
+    return max(1, min(MAX_CHUNKS, MAX_PARTIAL_BYTES // (9 * cin * cout * 4)))
+
+
 def chunk_plan(n: int, h: int, w: int, cin: int, cout: int
                ) -> Tuple[int, int]:
-    """``(chunk_pixels, chunks)``: how the kernel splits the N*H*W pixels
-    among its blocks.  Every chunk is a whole number of CHUNK_ALIGN pixels
-    and holds at least one pixel; the chunks cover all pixels."""
+    """``(chunk_pixels, chunks)``: how the tap-gather kernel splits the
+    N*H*W pixels among its blocks.  Every chunk is a whole number of
+    CHUNK_ALIGN pixels and holds at least one pixel; the chunks cover all
+    pixels."""
     steps = math.ceil(n * h * w / CHUNK_ALIGN)
     tiles = math.ceil(9 * cin / TILE_M) * math.ceil(cout / TILE_N)
-    want = max(1, min(steps, math.ceil(TARGET_BLOCKS / tiles), MAX_CHUNKS))
+    want = max(1, min(steps, math.ceil(TARGET_BLOCKS / tiles),
+                      _max_chunks(cin, cout)))
     steps_per_chunk = math.ceil(steps / want)
     return steps_per_chunk * CHUNK_ALIGN, math.ceil(steps / steps_per_chunk)
+
+
+def plan(n: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype,
+         aligned: bool = True) -> Plan:
+    """K2's launch plan for x ``(n, h, w, cin)`` and g ``(n, h, w, cout)``
+    of ``dtype``, ``aligned`` when both start on a 16-byte boundary: which
+    pass-1 kernel and instantiation, and how the pixels are split into
+    chunks.  The halo kernel takes aligned bf16 with Cin and Cout multiples
+    of 8 (its 16-byte copies), in HALO_TILE spatial tiles; everything else
+    takes the tap gather, with 16-byte loads of x and of g each where its
+    channels and the alignment allow."""
+    vec = 8 if dtype == torch.bfloat16 else 4
+    vec_a = vec if aligned and cin % vec == 0 else 1
+    vec_b = vec if aligned and cout % vec == 0 else 1
+    if dtype == torch.bfloat16 and vec_a == vec_b == vec:
+        tile_h, tile_w = HALO_TILE
+        tiles = n * math.ceil(h / tile_h) * math.ceil(w / tile_w)
+        per_chunk = math.ceil(cin / HALO_CI) * math.ceil(cout / HALO_CO)
+        want = max(1, min(tiles, math.ceil(HALO_TARGET_BLOCKS / per_chunk),
+                          _max_chunks(cin, cout)))
+        tiles_per_chunk = math.ceil(tiles / want)
+        return Plan("halo", math.ceil(tiles / tiles_per_chunk), 0, 0, 0,
+                    False, tile_h, tile_w, tiles_per_chunk)
+    chunk_pixels, chunks = chunk_plan(n, h, w, cin, cout)
+    staged = cin <= MAX_STAGED_CIN
+    return Plan("gather", chunks, chunk_pixels, 1 if staged else vec_a,
+                vec_b, staged, 0, 0, 0)
 
 
 def build() -> ctypes.CDLL:
@@ -80,8 +144,15 @@ def build() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
         lib.ssd_dw_conv3x3.restype = ctypes.c_int
+        lib.ssd_dw_conv3x3_halo.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.ssd_dw_conv3x3_halo.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -115,17 +186,25 @@ def dw_conv3x3p1(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                       device=x.device)
     if x.numel() == 0 or g.numel() == 0:
         return out.zero_()
-    chunk_pixels, chunks = chunk_plan(n, h, w, cin, cout)
-    partial = torch.empty((chunks, 9 * cin, cout), dtype=torch.float32,
+    p = plan(n, h, w, cin, cout, x.dtype,
+             aligned=x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0)
+    partial = torch.empty((p.chunks, 9 * cin, cout), dtype=torch.float32,
                           device=x.device)
     lib = build()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ssd_dw_conv3x3(
-            x.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            0 if x.dtype == torch.float32 else 1, n, h, w, cin, cout,
-            chunk_pixels, chunks, stream)
-    cuda_build.check(lib, err, "ssd_dw_conv3x3")
+        if p.kernel == "halo":
+            err = lib.ssd_dw_conv3x3_halo(
+                x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                out.data_ptr(), n, h, w, cin, cout, p.tile_h, p.tile_w,
+                p.tiles_per_chunk, p.chunks, stream)
+        else:
+            err = lib.ssd_dw_conv3x3(
+                x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                out.data_ptr(), 0 if x.dtype == torch.float32 else 1, n, h,
+                w, cin, cout, p.vec_a, p.vec_b, int(p.staged),
+                p.chunk_pixels, p.chunks, stream)
+    cuda_build.check(lib, err, f"ssd_dw_conv3x3 ({p.kernel})")
     launches += 1
     return out
 
