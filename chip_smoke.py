@@ -7,18 +7,27 @@ routed convs, and times both paths.
 
     python3 chip_smoke.py          # from the repo root, one card, nvcc
 
+    python3 chip_smoke.py --k1-baseline OLD.cu   # also time other K1
+                                                 # sources (repeatable) on
+                                                 # the same inputs
+
 Phases, one line each: device, build (each kernel's registers and
 spills; a spill fails), K1 vs plain, K2 vs plain, the serving slice,
-serving timing, the train slice, the frozen-conv1 step, train timing
-(with a bf16 routed-vs-unrouted gradient check and a profile of both
-steps).  Then one JSON line with each kernel's numbers, the card's
-name and power limit as nvidia-smi gives them, and as the last line
-``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
-that line.  Without CUDA it exits 1 at once.  It imports no JAX.
+serving timing (K1 at the serving and the exact-eval shape: device time
+per launch from torch.profiler, host time per call, CUDA-event time,
+valid counts, bounds), the train slice (with the routed conv's dX
+layout), the frozen-conv1 step, train timing (with a bf16
+routed-vs-unrouted gradient check and a profile of both steps).  Then
+one JSON line with each kernel's numbers, the card's name and power
+limit as nvidia-smi gives them, and as the last line ``{"ok": true,
+"device": {...}}``.  Any failed check exits non-zero before that line.
+Without CUDA it exits 1 at once.  It imports no JAX.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import itertools
 import json
 import math
@@ -28,14 +37,26 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
 SEED = 0
 SERVE_BATCHES = (1, 8, 256)     # detect_batch request sizes in the slice
 TIMING_BATCH = 256
-NMS_SHAPES = ((256, 20, 64), (8, 20, 200))   # serving K, exact-eval K
+# K1 vs plain on random (non-prefix) validity masks: the serving K, the
+# exact-eval K, and K across the word and warp boundaries.
+NMS_SHAPES = ((256, 20, 64), (8, 20, 200), (256, 20, 200), (4, 20, 1),
+              (4, 20, 33), (4, 20, 65), (4, 20, 256))
+# The plain version is also run on the CPU for sets up to this many
+# candidate pairs (sets * K * K).
+NMS_CPU_PAIRS = 1 << 23
 THR = 0.45
+# K1's timed launches per measurement.
+K1_CALLS = 200
+# Routed conv dX vs autograd's, relative to max|dX|, f32 on the card: the
+# same library call on the same operands.
+DX_TOL = 1e-6
 # K2 shapes (N, H, W, Cin, Cout): conv1_1, conv1_2, conv2_1, conv2_2 of
 # SSD300 at the train slice's batch, one ragged shape (the tap-gather
 # kernel in both dtypes), and one whose W is not a multiple of the halo
@@ -136,6 +157,12 @@ def crafted_nms_sets(device) -> list:
         ("duplicates", t([dup]),
          t([[False, True, True, False, True, True]], torch.bool),
          [False, True, False, False, False, False]),
+        # Zero-area boxes: two equal ones give union 0 and IoU 0/0 = NaN,
+        # which suppresses nothing; the last box repeats the third.
+        ("zero_area", t([[[0.2, 0.2, 0.2, 0.5], [0.2, 0.2, 0.2, 0.5],
+                          [0.1, 0.1, 0.4, 0.4], [0.3, 0.3, 0.3, 0.3],
+                          [0.1, 0.1, 0.4, 0.4]]]),
+         t([[True] * 5], torch.bool), [True, True, True, True, False]),
     ]
 
 
@@ -162,9 +189,10 @@ def phase_kernel_vs_plain(device, shapes=NMS_SHAPES) -> int:
             fail(f"K1 keep mask differs from the plain version on {name}")
         if expected is not None and kern[0].tolist() != expected:
             fail(f"K1 keep mask {kern[0].tolist()} != {expected} on {name}")
-        if expected is None and not (valid & ~kern).any():
+        if (expected is None and boxes.shape[-2] > 1
+                and not (valid & ~kern).any()):
             fail(f"nothing suppressed in {name}: the check is vacuous")
-        if boxes.shape[-2] == 200 or expected is not None:
+        if valid.numel() * boxes.shape[-2] <= NMS_CPU_PAIRS:
             if not torch.equal(plain.cpu(),
                                plain_keep(boxes.cpu(), valid.cpu())):
                 fail(f"plain version differs between card and CPU on {name}")
@@ -366,10 +394,13 @@ def phase_train_slice(device, steps: int = TRAIN_STEPS,
         fail(f"train losses not finite: {losses}")
     if device.type == "cuda" and launches != 4 * steps:
         fail(f"K2 launched {launches} times in {steps} routed steps")
+    if device.type == "cuda" and copies != 0:
+        fail(f"{copies} gradient layout copies in {steps} routed steps: a "
+             f"routed conv's dX left channels_last")
     out = {"losses": losses, "launches": launches, "layout_copies": copies,
            "loss_rel": 0.0, "delta_rel": 0.0, "delta_norm_rel": 0.0,
            "delta_worst": None,
-           "wgrad_rel": 0.0}
+           "wgrad_rel": 0.0, "dx_rel": routed_dx_check(device, batch)}
     if not cpu_check:
         return out
 
@@ -414,6 +445,35 @@ def phase_train_slice(device, steps: int = TRAIN_STEPS,
     if not out["wgrad_rel"] <= WGRAD_TOL:
         fail(f"K2 vs cuDNN wgrad differ by {out['wgrad_rel']:.3e}")
     return out
+
+
+def routed_dx_check(device, batch: int = TRAIN_BATCH) -> float:
+    """dX of `Conv3x3P1` at each routed conv's shape, f32, channels_last x
+    and upstream gradient: fails unless it is ``channels_last`` and within
+    `DX_TOL` of max|dX| of `F.conv2d`'s autograd dX.  Returns the largest
+    relative difference."""
+    import torch.nn.functional as F
+    from objectdetection_ssd_torch.ops import dw_cuda
+    gen = torch.Generator().manual_seed(SEED + 8)
+    cl = torch.channels_last
+    worst = 0.0
+    for conv, (n, h, w, cin, cout) in zip(ROUTED, dw_shapes(batch)):
+        x = torch.randn(n, cin, h, w, generator=gen).to(
+            device, memory_format=cl).requires_grad_()
+        wk = (torch.randn(cout, cin, 3, 3, generator=gen) * 0.05).to(
+            device).requires_grad_()
+        gy = torch.randn(n, cout, h, w, generator=gen).to(
+            device, memory_format=cl)
+        want, = torch.autograd.grad(F.conv2d(x, wk, None, 1, 1), x, gy)
+        dx, = torch.autograd.grad(dw_cuda.conv3x3p1(x, wk), x, gy)
+        if not dx.is_contiguous(memory_format=cl):
+            fail(f"{conv}: the routed conv's dX is not channels_last")
+        rel = float((dx - want).abs().max() / want.abs().max())
+        if not rel <= DX_TOL:
+            fail(f"{conv}: routed dX differs from autograd's by {rel:.3e}")
+        worst = max(worst, rel)
+        del x, wk, gy, want, dx
+    return worst
 
 
 def phase_frozen_step(device, batch: int = TRAIN_BATCH) -> dict:
@@ -640,15 +700,111 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def nms_bound_ms(sets: int, k: int) -> tuple:
-    """Least time for K1's work: bytes (boxes + valid in, keep out, each
-    once) over HBM rate, or the f32 operations of the pairwise tests
-    (13 per pair, 3 per box area) over the non-tensor f32 peak."""
-    bytes_moved = sets * k * (16 + 1 + 1)
-    ops = sets * (k * (k - 1) // 2 * 13 + 3 * k)
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def nms_bound_ms(valid: torch.Tensor) -> dict:
+    """Least time for K1's work on these inputs: the larger of the bytes it
+    must move (every valid flag and each valid candidate's box read once,
+    every keep flag written once) over HBM rate and the f32 operations of
+    the pairwise tests among valid candidates (13 per pair, 3 per box
+    area) over the non-tensor f32 peak.  Beside it, the figure that
+    counts every box read and all K(K-1)/2 pairs of every set."""
+    k = valid.shape[-1]
+    sets = valid.numel() // k
+    n_v = valid.reshape(sets, k).sum(-1).double()
+    out = {}
+    for key, boxes, pairs in (
+            ("valid", float(n_v.sum()), float((n_v * (n_v - 1) / 2).sum())),
+            ("all_pairs", sets * k, sets * k * (k - 1) / 2)):
+        t_bytes = (boxes * 16 + sets * k * 2) / HBM_BYTES_PER_S * 1e3
+        t_ops = (pairs * 13 + boxes * 3) / F32_OPS_PER_S * 1e3
+        out[key] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                    else (t_ops, "operations"))
+    return out
+
+
+def device_ms_per_call(fn, calls: int) -> tuple:
+    """Device time per call of ``fn`` from `torch.profiler`: the device
+    operations of ``calls`` calls, summed, over ``calls``; and their names
+    with their launch counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages()
+           if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+    total_us = sum(e.self_device_time_total for e in ops)
+    return total_us / calls / 1e3, {e.key: e.count for e in ops}
+
+
+def host_ms_per_call(fn, calls: int) -> float:
+    """Host clock around ``calls`` calls of ``fn`` with no synchronize
+    inside, over ``calls``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host_s / calls * 1e3
+
+
+def k1_library_launcher(source: Path):
+    """``fn(boxes, valid) -> keep`` that launches ``ssd_nms_keep`` of
+    another K1 source (the same C interface) on the current stream."""
+    from objectdetection_ssd_torch import cuda_build
+    from objectdetection_ssd_torch.infer import nms_cuda
+    lib = nms_cuda.declare(cuda_build.load(source))
+
+    def run(boxes, valid):
+        keep = torch.empty(valid.shape, dtype=torch.bool,
+                           device=valid.device)
+        k = valid.shape[-1]
+        err = lib.ssd_nms_keep(boxes.data_ptr(), valid.data_ptr(),
+                               keep.data_ptr(), valid.numel() // k, k, THR,
+                               torch.cuda.current_stream().cuda_stream)
+        cuda_build.check(lib, err, f"ssd_nms_keep ({source.name})")
+        return keep
+    return run
+
+
+def k1_timing(cand, valid, baselines: dict) -> dict:
+    """K1 on one main-path input: bit-equal to the plain version (and each
+    of the ``baselines`` launchers' keep masks too), then its device time
+    per launch, host time per call and CUDA-event time, each baseline's,
+    the plain version's, the valid counts per set and both bounds."""
+    from objectdetection_ssd_torch.infer import nms_cuda
+    kern = nms_cuda.greedy_nms_keep(cand, valid, THR)
+    if not torch.equal(kern, plain_keep(cand, valid)):
+        fail(f"K1 differs from the plain version at {tuple(valid.shape)}")
+    runs = {"k1": lambda: nms_cuda.greedy_nms_keep(cand, valid, THR)}
+    for name, launch in baselines.items():
+        if not torch.equal(launch(cand, valid), kern):
+            fail(f"the K1 baseline {name} differs at {tuple(valid.shape)}")
+        runs[name] = lambda launch=launch: launch(cand, valid)
+    n_v = valid.reshape(-1, valid.shape[-1]).sum(-1).float()
+    bounds = nms_bound_ms(valid)
+    row = {"shape": [*valid.shape], "valid_mean": float(n_v.mean()),
+           "valid_max": int(n_v.max()),
+           "suppressed": int((valid & ~kern).sum()),
+           "bound_ms": bounds["valid"][0], "bound_by": bounds["valid"][1],
+           "all_pairs_bound_ms": bounds["all_pairs"][0],
+           "all_pairs_bound_by": bounds["all_pairs"][1],
+           "runs": list(runs)}
+    for key, fn in runs.items():
+        dev_ms, names = device_ms_per_call(fn, K1_CALLS)
+        if not any("nms" in n for n in names):
+            fail(f"{key}: no NMS kernel in the profile ({names})")
+        row[key] = {"device_ms": dev_ms, "kernels": names,
+                    "host_ms": host_ms_per_call(fn, K1_CALLS),
+                    "event_ms": cuda_ms(fn, iters=K1_CALLS)}
+    row["plain_ms"] = cuda_ms(lambda: plain_keep(cand, valid), iters=3,
+                              warmup=1)
+    return row
 
 
 def conv_flops_per_image(model, image) -> int:
@@ -671,11 +827,13 @@ def conv_flops_per_image(model, image) -> int:
     return total
 
 
-def phase_timing(state_dict) -> dict:
+def phase_timing(state_dict, k1_baselines=None) -> dict:
     """bf16, channels_last, batch 256: end to end with bench.py's chained
-    dependency, forward alone, postprocess alone, and K1 alone."""
+    dependency, forward alone, postprocess alone, and K1 alone on the
+    candidates of the serving path (K = 64) and of the exact evaluation
+    path (K = 200, `eval/evaluate.py:exact_eval_postprocess`'s settings),
+    beside each of the ``k1_baselines`` launchers (by name)."""
     from objectdetection_ssd_torch.config import Config, ModelConfig
-    from objectdetection_ssd_torch.infer import nms_cuda
     from objectdetection_ssd_torch.infer import postprocess as pp
     from objectdetection_ssd_torch.infer.detector import Detector
 
@@ -703,30 +861,34 @@ def phase_timing(state_dict) -> dict:
         float(x.float().sum())                      # fence
         best = min(best, (time.perf_counter() - t0) / n_iters)
 
+    exact = dataclasses.replace(det.pp_config, use_approx_top_k=False,
+                                anchor_prefilter=0, per_class_top_k=200)
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: det.forward(x), iters=10)
         loc, conf = det.forward(x)
         pp_ms = cuda_ms(lambda: pp.postprocess(loc, conf, det.priors,
                                                det.pp_config), iters=20)
-        cand, _, valid = pp.select_candidates(loc, conf, det.priors,
-                                              det.pp_config)
-        k1_ms = cuda_ms(lambda: nms_cuda.greedy_nms_keep(cand, valid, THR),
-                        iters=200)
-        plain_ms = cuda_ms(lambda: plain_keep(cand, valid), iters=5,
-                           warmup=1)
-    sets, k = valid.numel() // valid.shape[-1], valid.shape[-1]
-    bound_ms, bound_by = nms_bound_ms(sets, k)
+        k1 = []
+        for pp_config in (det.pp_config, exact):
+            cand, _, valid = pp.select_candidates(loc, conf, det.priors,
+                                                  pp_config)
+            k1.append(k1_timing(cand, valid, k1_baselines or {}))
+            del cand, valid
     flops = conv_flops_per_image(det.model, x[:1]) * TIMING_BATCH
     return {"images_per_s": TIMING_BATCH / best, "step_ms": best * 1e3,
             "forward_ms": fwd_ms, "postprocess_ms": pp_ms,
             "forward_tflops": flops / (fwd_ms * 1e-3) / 1e12,
-            "gflop_per_image": flops / TIMING_BATCH / 1e9,
-            "k1_ms": k1_ms, "k1_plain_ms": plain_ms,
-            "k1_bound_ms": bound_ms, "k1_bound_by": bound_by,
-            "k1_shape": [*valid.shape]}
+            "gflop_per_image": flops / TIMING_BATCH / 1e9, "k1": k1}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--k1-baseline", type=Path, action="append",
+                        default=[],
+                        help="another K1 source with the same C interface, "
+                             "timed beside the repo's K1 on the same inputs "
+                             "(repeatable)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -746,11 +908,15 @@ def main() -> int:
     # nvcc per source, all started together.
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     sources = {"K1": nms_cuda.SOURCE, "K2": dw_cuda.SOURCE}
+    for path in args.k1_baseline:
+        sources[f"K1 baseline {path.stem}"] = path.resolve()
     t0 = time.perf_counter()
     cuda_build.compile_sources(sources.values())
     nms_cuda.build()
     dw_cuda.build()
     build_s = time.perf_counter() - t0
+    k1_baselines = {path.stem: k1_library_launcher(path.resolve())
+                    for path in args.k1_baseline}
     for kid, src in sources.items():
         rows = ptxas_rows(src)
         print(f"build: {kid} {src.name} (-Xptxas=-v): " + "; ".join(
@@ -766,12 +932,13 @@ def main() -> int:
         for dtype, aligned in itertools.product(DW_TOL, (True, False)):
             kernel_ptxas(k2_rows, dw_cuda.plan(n, h, w, cin, cout, dtype,
                                                aligned), dtype)
-    print(f"build: K1 and K2 in {build_s:.2f} s (parallel nvcc), no "
-          f"kernel spills")
+    print(f"build: {', '.join(sources)} in {build_s:.2f} s (parallel "
+          f"nvcc), no kernel spills")
 
     worst = phase_kernel_vs_plain(device)
     print(f"kernel vs plain: K1 keep masks bit-equal on random "
-          f"{list(NMS_SHAPES)} and crafted sets (max_abs_err {worst})")
+          f"{list(NMS_SHAPES)} with random validity masks and on crafted "
+          f"sets (max_abs_err {worst})")
 
     dw_rows = phase_dw_vs_plain(device)
     for r in dw_rows:
@@ -800,24 +967,37 @@ def main() -> int:
           f"{tr['loss_rel']:.3e} relative, parameter changes "
           f"{tr['delta_norm_rel']:.3e} in norm and {tr['delta_rel']:.3e} of "
           f"their largest ({tr['delta_worst']}); "
-          f"K2 vs cuDNN wgrad dW {tr['wgrad_rel']:.3e} of max|dW|")
+          f"K2 vs cuDNN wgrad dW {tr['wgrad_rel']:.3e} of max|dW|; routed "
+          f"dX channels_last, {tr['dx_rel']:.3e} of max|dX| from autograd's "
+          f"(tolerance {DX_TOL:.0e})")
     fr = phase_frozen_step(device)
     print(f"train slice: freeze_stages=1 step: K2 launches {fr['launches']} "
           f"(conv2_1, conv2_2), conv1 gradients none, conv2 gradients "
           f"present")
 
-    tm = phase_timing(sd)
+    tm = phase_timing(sd, k1_baselines)
     print(f"timing: bf16 channels_last batch {TIMING_BATCH} ({smi}): "
           f"{tm['images_per_s']:.1f} images/s end to end "
           f"({tm['step_ms']:.3f} ms/step), forward {tm['forward_ms']:.3f} ms"
           f" ({tm['gflop_per_image']:.2f} GFLOP/image of convs, "
           f"{tm['forward_tflops']:.1f} TFLOP/s, "
           f"{tm['forward_tflops'] / 989 * 100:.1f}% of the 989 TFLOP/s bf16 "
-          f"peak), postprocess {tm['postprocess_ms']:.3f} ms, K1 "
-          f"{tm['k1_ms'] * 1e3:.2f} us at {tm['k1_shape']} (bound "
-          f"{tm['k1_bound_ms'] * 1e3:.2f} us by {tm['k1_bound_by']}, plain "
-          f"{tm['k1_plain_ms'] * 1e3:.1f} us); library_ms null: no PyTorch "
-          f"call computes fixed-shape batched greedy NMS")
+          f"peak), postprocess {tm['postprocess_ms']:.3f} ms")
+    for r in tm["k1"]:
+        runs = "; ".join(
+            f"{key} device {r[key]['device_ms'] * 1e3:.2f} us per launch "
+            f"(torch.profiler, {K1_CALLS} launches: {r[key]['kernels']}), "
+            f"host {r[key]['host_ms'] * 1e3:.2f} us per call, CUDA events "
+            f"{r[key]['event_ms'] * 1e3:.2f} us per call"
+            for key in r["runs"])
+        print(f"timing: K1 at {r['shape']} ({smi}): {runs}; valid per set "
+              f"mean {r['valid_mean']:.2f} max {r['valid_max']}, suppressed "
+              f"{r['suppressed']}; bound {r['bound_ms'] * 1e3:.3f} us by "
+              f"{r['bound_by']} (valid pairs), all-pairs bound "
+              f"{r['all_pairs_bound_ms'] * 1e3:.3f} us by "
+              f"{r['all_pairs_bound_by']}; plain {r['plain_ms'] * 1e3:.1f} "
+              f"us; library_ms null: no PyTorch call computes fixed-shape "
+              f"batched greedy NMS")
 
     tt = phase_train_timing()
     rng = {k: "-".join(f"{t:.3f}" for t in v)
@@ -858,6 +1038,11 @@ def main() -> int:
         print("profile: routed minus unrouted by aten operator (device ms "
               "per step, children included): " + "; ".join(
                   f"{d:+.3f} {n}" for d, n in diff[:6] + diff[-3:]))
+        copy = {key: p["aten"].get("aten::copy_", 0.0)
+                for key, p in prof.items()}
+        print(f"profile: aten::copy_ routed {copy['routed']:.3f} ms/step, "
+              f"unrouted {copy['plain']:.3f}, routed minus unrouted "
+              f"{copy['routed'] - copy['plain']:+.3f} ms/step")
     else:
         print("profile: torch.profiler recorded no device time")
     for r in tt["k2"]:
@@ -879,6 +1064,7 @@ def main() -> int:
     k2_ops = sum(r["ops_ms"] for r in k2)
     k2_bytes = sum(r["bytes_ms"] for r in k2)
 
+    serve_k1 = tm["k1"][0]
     print(json.dumps({"kernels": [{
         "name": "greedy_nms_keep",
         "route": "cuda",
@@ -887,11 +1073,22 @@ def main() -> int:
                     "(git eb1d1b7)",
         "launches": sl["launches"],
         "max_abs_err": worst,
-        "ms": tm["k1_ms"],
-        "plain_ms": tm["k1_plain_ms"],
-        "bound_ms": tm["k1_bound_ms"],
-        "bound_by": tm["k1_bound_by"],
+        # The serving shape; every shape's numbers are in per_shape.
+        "ms": serve_k1["k1"]["event_ms"],
+        "device_ms": serve_k1["k1"]["device_ms"],
+        "host_ms": serve_k1["k1"]["host_ms"],
+        "plain_ms": serve_k1["plain_ms"],
+        "bound_ms": serve_k1["bound_ms"],
+        "bound_by": serve_k1["bound_by"],
         "library_ms": None,
+        "per_shape": [{
+            "shape": r["shape"], "ms": r["k1"]["event_ms"],
+            "device_ms": r["k1"]["device_ms"], "host_ms": r["k1"]["host_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "all_pairs_bound_ms": r["all_pairs_bound_ms"],
+            "valid_mean": r["valid_mean"], "valid_max": r["valid_max"],
+            "library_ms": None} for r in tm["k1"]],
     }, {
         "name": "dw_conv3x3p1",
         "route": "cuda",

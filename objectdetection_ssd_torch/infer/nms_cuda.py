@@ -51,17 +51,21 @@ def greedy_nms_mask(iou: torch.Tensor, valid: torch.Tensor,
     return valid & ~suppress
 
 
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Give ``lib.ssd_nms_keep`` its C signature; returns ``lib``."""
+    lib.ssd_nms_keep.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_void_p, ctypes.c_longlong,
+                                 ctypes.c_int, ctypes.c_float,
+                                 ctypes.c_void_p]
+    lib.ssd_nms_keep.restype = ctypes.c_int
+    return lib
+
+
 def build() -> ctypes.CDLL:
     """Compile (once per source and flag set) and load the kernel library."""
     global _lib
     if _lib is None:
-        lib = cuda_build.load(SOURCE)
-        lib.ssd_nms_keep.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_void_p, ctypes.c_longlong,
-                                     ctypes.c_int, ctypes.c_float,
-                                     ctypes.c_void_p]
-        lib.ssd_nms_keep.restype = ctypes.c_int
-        _lib = lib
+        _lib = declare(cuda_build.load(SOURCE))
     return _lib
 
 
@@ -95,19 +99,25 @@ def greedy_nms_keep(cand_boxes: torch.Tensor, valid: torch.Tensor,
     if cand_boxes.device.type == "cpu":
         return greedy_nms_mask(pairwise_iou(cand_boxes, cand_boxes), valid,
                                iou_threshold)
-    if cand_boxes.device.type != "cuda":
-        raise ValueError(f"unsupported device {cand_boxes.device}")
-    keep = torch.empty(valid.shape, dtype=torch.bool, device=valid.device)
+    device = cand_boxes.device
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    keep = torch.empty_like(valid)
     k = cand_boxes.shape[-2]
     num_sets = valid.numel() // k
     if num_sets == 0:
         return keep
-    lib = build()
-    with torch.cuda.device(cand_boxes.device):
-        stream = torch.cuda.current_stream(cand_boxes.device).cuda_stream
-        err = lib.ssd_nms_keep(cand_boxes.data_ptr(), valid.data_ptr(),
-                               keep.data_ptr(), num_sets, k,
-                               float(iou_threshold), stream)
+    lib = _lib or build()
+    args = (cand_boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+            num_sets, k, float(iou_threshold),
+            torch.cuda.current_stream(device).cuda_stream)
+    # The kernel launches on the current device: switch only when the
+    # tensors live on another one.
+    if device.index == torch.cuda.current_device():
+        err = lib.ssd_nms_keep(*args)
+    else:
+        with torch.cuda.device(device):
+            err = lib.ssd_nms_keep(*args)
     cuda_build.check(lib, err, "ssd_nms_keep")
     launches += 1
     return keep

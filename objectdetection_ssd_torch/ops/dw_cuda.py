@@ -14,7 +14,9 @@ tensors, else the tap gather), its instantiation and its tiling.
 
 `Conv3x3P1` is the port of the custom VJP `conv3x3p1`: its forward and dX
 are library convs (cuDNN on the card), as the JAX package left them to XLA;
-only dW comes from K2, cast to the weight's dtype as `_bwd` does.
+dX is `aten.convolution_backward` of the saved x, so it keeps x's memory
+format (``channels_last`` in, ``channels_last`` out); only dW comes from
+K2, cast to the weight's dtype as `_bwd` does.
 """
 
 from __future__ import annotations
@@ -233,8 +235,9 @@ class Conv3x3P1(torch.autograd.Function):
         x, weight = ctx.saved_tensors
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = torch.nn.grad.conv2d_input(x.shape, weight, grad_out,
-                                            padding=1)
+            dx = torch.ops.aten.convolution_backward(
+                grad_out, x, weight, None, [1, 1], [1, 1], [1, 1], False,
+                [0, 0], 1, [True, False, False])[0]
         if ctx.needs_input_grad[1]:
             taps = dw_conv3x3p1(_nhwc(x), _nhwc(grad_out))  # (3,3,Cin,Cout)
             dw = taps.permute(3, 2, 0, 1).to(weight.dtype)

@@ -289,6 +289,36 @@ def test_conv3x3p1_function_matches_autograd(shape, needs_dx):
         assert xg.grad is None
 
 
+@pytest.mark.parametrize("shape", [(2, 6, 7, 4, 8), (1, 9, 11, 3, 12),
+                                   (2, 12, 10, 8, 16)])
+def test_conv3x3p1_dx_stays_channels_last(shape):
+    """dX of a channels_last x is channels_last and equals `F.conv2d`'s own
+    autograd dX to 1e-6 of its largest value; dW is still K2's plain
+    version.  The gradients are read with `torch.autograd.grad`, which
+    hands back what the Function returned (a leaf's ``.grad`` would be
+    copied into the leaf's layout)."""
+    n, h, w, ci, co = shape
+    rng = np.random.default_rng(3)
+    cl = torch.channels_last
+    x = torch.from_numpy(rng.normal(0, 1, (n, ci, h, w)).astype(
+        np.float32)).contiguous(memory_format=cl).requires_grad_()
+    wk = torch.from_numpy(rng.normal(0, 0.2, (co, ci, 3, 3)).astype(
+        np.float32)).requires_grad_()
+    gy = torch.from_numpy(rng.normal(0, 1, (n, co, h, w)).astype(
+        np.float32)).contiguous(memory_format=cl)
+
+    want_dx, = torch.autograd.grad(F.conv2d(x, wk, None, 1, 1), x, gy)
+    dx, dw = torch.autograd.grad(dw_cuda.conv3x3p1(x, wk), (x, wk), gy)
+
+    assert dx.is_contiguous(memory_format=cl)
+    scale = float(want_dx.abs().max())
+    torch.testing.assert_close(dx, want_dx, rtol=0, atol=1e-6 * scale)
+    want_dw = dw_cuda.dw_conv3x3p1_plain(x.detach().permute(0, 2, 3, 1),
+                                         gy.permute(0, 2, 3, 1))
+    torch.testing.assert_close(dw, want_dw.permute(3, 2, 0, 1), rtol=0,
+                               atol=0)
+
+
 def test_conv3x3p1_counts_layout_copies():
     x = torch.randn(1, 4, 5, 6, requires_grad=False)      # plain NCHW
     wk = torch.randn(3, 4, 3, 3, requires_grad=True)

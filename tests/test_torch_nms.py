@@ -6,6 +6,8 @@ no tolerance.  The CUDA kernel is held to the same plain version on the
 card by `chip_smoke.py`.
 """
 
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import torch
@@ -74,6 +76,13 @@ def crafted_sets():
                   np.array([[[0.0, 0.0, 1.0, 1.0], [0.05, 0.0, 1.05, 1.0]]],
                            f32),
                   np.array([[False, True]])))
+    # Zero-area boxes: two equal ones give union 0 and IoU 0/0 = NaN, which
+    # suppresses nothing; the last box repeats the third.
+    cases.append(("zero_area",
+                  np.array([[[0.2, 0.2, 0.2, 0.5], [0.2, 0.2, 0.2, 0.5],
+                             [0.1, 0.1, 0.4, 0.4], [0.3, 0.3, 0.3, 0.3],
+                             [0.1, 0.1, 0.4, 0.4]]], f32),
+                  np.ones((1, 5), bool)))
     return cases
 
 
@@ -101,6 +110,7 @@ def test_crafted_expected_masks():
     assert got["all_invalid"] == [False] * 8
     assert got["duplicates"] == [False, True, False, False, False, False]
     assert got["invalid_never_acts"] == [False, True]
+    assert got["zero_area"] == [True, True, True, True, False]
 
 
 def _np_iou(a, b):
@@ -180,6 +190,170 @@ def test_greedy_nms_keep_matches_plain_on_iou():
 def test_wrapper_rejects_what_the_kernel_does_not_take(boxes, valid, err):
     with pytest.raises(err):
         nms_cuda.greedy_nms_keep(boxes, valid, THR)
+
+
+MASK64 = (1 << 64) - 1
+K_ROWS = 4                # csrc/nms.cu kRows
+
+
+def _popc(x):
+    return bin(x).count("1")
+
+
+def _kernel_schedule(over, valid):
+    """A transcription of `csrc/nms.cu`'s index arithmetic for one set, on
+    Python ints: the valid compaction (ballots and prefix counts), the
+    triangle by blocks of 32 columns and K_ROWS rows per step (each row's
+    ballot stored once as its 32-bit word), the scan over kept boxes and
+    the mapping back.  ``over`` (K, K) bool
+    is the relation IoU >= thr, ``valid`` (K,) bool.  Returns the keep
+    mask, the (row, column) pairs each lane was given, in compacted
+    positions, and the row words."""
+    k = len(valid)
+    words = (k + 63) // 64
+    # 1. Compaction.
+    orig, ballots = [], []
+    for c0 in range(0, k, 32):
+        m = sum(1 << lane for lane in range(32)
+                if c0 + lane < k and valid[c0 + lane])
+        orig += [c0 + lane for lane in range(32) if (m >> lane) & 1]
+        ballots.append(m)
+    n_v = len(orig)
+    # 2. The triangle, one block of 32 columns at a time: lane t holds
+    # column 32 cb + t, the warp walks the rows with a column above them in
+    # the block, K_ROWS per step, and each row's ballot is its 32-bit word
+    # cb, stored once.
+    words32 = [[0] * (2 * words) for _ in range(n_v)]
+    given = [[] for _ in range(32)]
+    stored = set()
+    for cb in range((n_v + 31) // 32):
+        rows_cb = min(n_v - 1, 32 * cb + 31)
+        for i0 in range(0, rows_cb, K_ROWS):
+            for i in range(i0, min(i0 + K_ROWS, rows_cb)):
+                hits = 0
+                for lane in range(32):
+                    col = 32 * cb + lane
+                    if i < col < n_v:
+                        given[lane].append((i, col))
+                        if over[orig[i], orig[col]]:
+                            hits |= 1 << lane
+                assert (i, cb) not in stored          # one store per word
+                stored.add((i, cb))
+                words32[i][cb] = hits
+    rows = [[w32[2 * w] | w32[2 * w + 1] << 32 for w in range(words)]
+            for w32 in words32]
+    # 3. The scan over kept boxes: avail holds the valid candidates not
+    # removed and above the last kept one.
+    avail = [MASK64 if n_v - 64 * w >= 64 else
+             (1 << max(n_v - 64 * w, 0)) - 1 for w in range(words)]
+    kept = [0] * max(n_v, 1)
+    while any(avail):
+        w = next(w for w in range(words) if avail[w])
+        i = 64 * w + (avail[w] & -avail[w]).bit_length() - 1
+        kept[i] = 1
+        for v in range(words):
+            below = i + 1 - 64 * v
+            above = MASK64 if below <= 0 else 0 if below >= 64 else \
+                (MASK64 << below) & MASK64
+            avail[v] &= ~rows[i][v] & above
+    # 4. Back to the original positions.
+    keep, before = [False] * k, 0
+    for q, m in enumerate(ballots):
+        for lane in range(32):
+            i = 32 * q + lane
+            if i < k and (m >> lane) & 1:
+                keep[i] = bool(kept[before + _popc(m & ((1 << lane) - 1))])
+        before += _popc(m)
+    return np.array(keep), given, rows, orig
+
+
+def _schedule_case(k, mask, seed):
+    boxes, valid = _random_sets(seed=seed, b=1, k=k, invalid_share=0.4)
+    boxes, valid = boxes[0, :2], valid[0, :2]
+    if mask == "all_invalid":
+        valid[:] = False
+    elif mask == "all_valid":
+        valid[:] = True
+    elif mask == "duplicates":
+        boxes[:] = boxes[:, :1]
+    return boxes, valid
+
+
+@pytest.mark.parametrize("mask", ["random", "all_invalid", "all_valid",
+                                  "duplicates"])
+@pytest.mark.parametrize("k", [1, 2, 31, 32, 33, 63, 64, 65, 200, 256])
+def test_kernel_schedule_matches_plain(k, mask):
+    """`csrc/nms.cu`'s schedule: every pair i < j of valid candidates goes
+    to exactly one lane and each row word is stored once, the row words hold exactly the relation among valid candidates above the
+    diagonal, and the keep mask equals the plain version's, on random
+    (non-prefix) masks, all-invalid, all-valid and duplicate boxes."""
+    boxes, valid = _schedule_case(k, mask, seed=100 + k)
+    for b, v in zip(boxes, valid):
+        over = (pairwise_iou(torch.from_numpy(b), torch.from_numpy(b))
+                >= THR).numpy()
+        keep, given, rows, orig = _kernel_schedule(over, v)
+        n_v = len(orig)
+        assert orig == list(np.flatnonzero(v))
+        flat = sorted(pair for lane in given for pair in lane)
+        assert flat == [(i, j) for i in range(n_v) for j in range(i + 1, n_v)]
+        for i in range(n_v):
+            want = sum(1 << j for j in range(i + 1, n_v)
+                       if over[orig[i], orig[j]])
+            assert sum(w << (64 * q) for q, w in enumerate(rows[i])) == want
+        plain = nms_cuda.greedy_nms_keep(torch.from_numpy(b[None]),
+                                         torch.from_numpy(v[None]), THR)
+        np.testing.assert_array_equal(keep, plain[0].numpy())
+        if mask == "duplicates" and v.any():
+            assert keep.sum() == 1
+
+
+def _rounded_sign(x):
+    """The sign of ``x`` (an exact Fraction) after one rounding to f32:
+    0 below half the smallest subnormal, 2**-150 (a tie goes to even, 0)."""
+    return 0 if abs(x) <= Fraction(1, 2 ** 150) else (1 if x > 0 else -1)
+
+
+def _screen(inter, uni, thr):
+    """`csrc/nms.cu` `overlaps`'s decision without the division: True,
+    False, or None where it takes the division.  Each fused multiply-add
+    is its exact value rounded once."""
+    if not (uni > 0 and np.isfinite(uni)):
+        return None
+    inter, uni = Fraction(float(inter)), Fraction(float(uni))
+    thr_below = Fraction(float(np.nextafter(thr, np.float32(-np.inf))))
+    if _rounded_sign(inter - Fraction(float(thr)) * uni) > 0:
+        return True
+    if _rounded_sign(inter - thr_below * uni) < 0:
+        return False
+    return None
+
+
+@pytest.mark.parametrize("thr", [0.45, 0.5, 0.3, 0.7, 1e-30])
+def test_division_screen_is_exact(thr):
+    """Wherever the screen decides, it decides as fl(inter / uni) >= thr
+    (IEEE f32 division), on unions across many octaves and intersections
+    within a few ulps of thr * uni and of thr_below * uni, where the
+    division is closest to thr."""
+    thr = np.float32(thr)
+    rng = np.random.default_rng(int(thr * 1e6) + 1)
+    uni = (rng.uniform(1, 2, 400) * 2.0 ** rng.integers(-60, 60, 400)
+           ).astype(np.float32)
+    decided = {True: 0, False: 0, None: 0}
+    for u in uni:
+        for t in (thr, np.nextafter(thr, np.float32(-np.inf))):
+            centre = np.float32(t * u)
+            for step in range(-3, 4):
+                inter = centre
+                for _ in range(abs(step)):
+                    inter = np.nextafter(inter, np.float32(np.sign(step)
+                                                           * np.inf))
+                got = _screen(inter, u, thr)
+                decided[got] += 1
+                if got is not None:
+                    assert got == bool(np.float32(inter / u) >= thr), (
+                        inter, u, thr)
+    assert decided[True] and decided[False]
+    assert decided[None] < decided[True] + decided[False]
 
 
 def test_wrapper_takes_k_256():
