@@ -3,7 +3,9 @@
 card: builds every hand kernel (K1 greedy NMS, K2 the 3x3 filter
 gradient), holds each against its plain PyTorch version, serves SSD300
 requests through `Detector`, takes SSD300 train steps with K2 on the
-routed convs, and times both paths.
+routed convs, times both paths, and drives the training entry point
+(Loader, Trainer, checkpoints and resume, `cli eval`, `Detector.
+from_checkpoint`) on a synthetic VOC fixture held in packed caches.
 
     python3 chip_smoke.py          # from the repo root, one card, nvcc
 
@@ -17,7 +19,10 @@ serving timing (K1 at the serving and the exact-eval shape: device time
 per launch from torch.profiler, host time per call, CUDA-event time,
 valid counts, bounds), the train slice (with the routed conv's dX
 layout), the frozen-conv1 step, train timing (with a bf16
-routed-vs-unrouted gradient check and a profile of both steps).  Then
+routed-vs-unrouted gradient check and a profile of both steps), the
+trainer slice (the Loader alone, three epochs of `Trainer.fit`, resume,
+`cli eval` with K1 launched for every batch, detect from the checkpoint,
+no fall-through from the native data library).  Then
 one JSON line with each kernel's numbers, the card's name and power
 limit as nvidia-smi gives them, and as the last line ``{"ok": true,
 "device": {...}}``.  Any failed check exits non-zero before that line.
@@ -27,6 +32,7 @@ Without CUDA it exits 1 at once.  It imports no JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -881,6 +887,287 @@ def phase_timing(state_dict, k1_baselines=None) -> dict:
             "gflop_per_image": flops / TIMING_BATCH / 1e9, "k1": k1}
 
 
+def host_cpus() -> str:
+    """What the host gives this process: os.cpu_count(), the CPUs it may
+    run on, and the cgroup's CPU quota where one is readable."""
+    import os
+    quota = "none readable"
+    for path in ("/sys/fs/cgroup/cpu.max",
+                 "/sys/fs/cgroup/cpu/cpu.cfs_quota_us"):
+        try:
+            with open(path) as f:
+                quota = f"{path} = {f.read().strip()}"
+            break
+        except OSError:
+            continue
+    return (f"os.cpu_count() {os.cpu_count()}, affinity "
+            f"{len(os.sched_getaffinity(0))}, cgroup quota {quota}")
+
+
+def write_fixture(root: str, cache_prefix: str, num_2007: int,
+                  num_2012: int, image_size=(500, 375)) -> tuple:
+    """A synthetic VOCdevkit (XML and ImageSets as `generate_voc` writes
+    them, up to 8 objects, class-colour coded) whose pixels go straight into
+    two packed caches instead of JPEG files: ``cache_prefix`` over the
+    train split's paths in order and ``cache_prefix.val`` over the val
+    split's, the split the CLI takes.  No PIL, no decode.  Returns (train
+    records, val records)."""
+    from objectdetection_ssd_torch.config import DataConfig
+    from objectdetection_ssd_torch.data import cache, synthetic, voc
+    pixels = {}
+    synthetic.generate_voc(root, num_2007=num_2007, num_2012=num_2012,
+                           image_size=image_size, max_objects=8, seed=SEED,
+                           class_color_coding=True,
+                           image_sink=pixels.__setitem__)
+    records = voc.load_records(root, train=True)
+    data = DataConfig()
+    train_ids, val_ids = voc.train_val_split(len(records), data.val_fraction,
+                                             data.split_seed)
+    splits = ([records[i] for i in train_ids], [records[i] for i in val_ids])
+    for recs, prefix in zip(splits, (cache_prefix, cache_prefix + ".val")):
+        paths = [r.image_path for r in recs]
+        cache.write(paths, prefix, lambda paths=paths: (pixels[p]
+                                                        for p in paths))
+        if not cache.is_current(paths, prefix):
+            fail(f"the fixture cache {prefix} is not current")
+    return splits
+
+
+@contextlib.contextmanager
+def watch_copy_stage(trainer):
+    """While open, keep every host batch that enters ``trainer``'s copy
+    stage and a clone of what each `train_step` or `eval_step` reads,
+    taken on the step's stream as its first work (after the copy's event
+    wait, before the step).  On close, every batch the steps read must be
+    bit-equal to the host arrays it was copied from, and every copy must
+    have run on the side stream: a step that read a batch still being
+    copied fails.  Yields a dict that gets the number of steps checked."""
+    from objectdetection_ssd_torch.train import loop as loop_lib
+    host, read, checked = [], [], {}
+    to_device = trainer._to_device
+    steps = {name: getattr(loop_lib, name)
+             for name in ("train_step", "eval_step")}
+
+    def tapped(host_iter, batch_size, side):
+        if side is None:
+            fail("device_prefetch ran without its copy stream")
+
+        def tap():
+            for batch in host_iter:
+                host.append(batch)
+                yield batch
+        return to_device(tap(), batch_size, side)
+
+    def reading(step):
+        def reading_step(state, batch, *args, **kwargs):
+            read.append({k: t.clone() for k, t in batch.items()})
+            return step(state, batch, *args, **kwargs)
+        return reading_step
+
+    trainer._to_device = tapped
+    for name, step in steps.items():
+        setattr(loop_lib, name, reading(step))
+    try:
+        yield checked
+    finally:
+        del trainer._to_device
+        for name, step in steps.items():
+            setattr(loop_lib, name, step)
+    if not read or len(read) != len(host):
+        fail(f"copy stage: {len(read)} steps for {len(host)} host batches")
+    for i, (want, got) in enumerate(zip(host, read)):
+        n = len(want["images"])
+        for key, t in got.items():
+            if not torch.equal(t[:n].cpu(), torch.from_numpy(want[key])):
+                fail(f"copy stage: step {i} read {key} that differs from "
+                     f"its host batch")
+    checked["steps"] = len(read)
+
+
+def phase_trainer_slice(device, num_2007: int = 448, num_2012: int = 192,
+                        batch: int = TIMING_TRAIN_BATCH,
+                        workers: int = 0) -> dict:
+    """The training entry point: a synthetic VOC fixture in packed caches,
+    the Loader timed alone, `Trainer.fit` (bf16, default OptimConfig) for
+    two epochs with device_prefetch (every batch a train step read held
+    against its host arrays) and one without, resume in a fresh Trainer,
+    `cli eval` in-process, `Detector.from_checkpoint` on cached val images;
+    the native library must serve every image (no fall-through, here or in
+    the Loader's workers)."""
+    import io
+    import logging.handlers
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from objectdetection_ssd_torch import cli, native
+    from objectdetection_ssd_torch.config import (Config, DataConfig,
+                                                  ModelConfig, TrainConfig)
+    from objectdetection_ssd_torch.data import cache
+    from objectdetection_ssd_torch.data.pipeline import (Loader,
+                                                         preprocess_image,
+                                                         quantize_uint8)
+    from objectdetection_ssd_torch.infer import nms_cuda
+    from objectdetection_ssd_torch.infer.detector import Detector
+    from objectdetection_ssd_torch.train.trainer import Trainer
+    from objectdetection_ssd_torch.utils.metrics import logger, setup_logging
+
+    cuda = device.type == "cuda"
+    if not native.available():
+        fail("the native data library did not build")
+    native.fallbacks = 0
+    workers = workers or min(8, os.cpu_count() or 1)
+    out = {"cpu_count": os.cpu_count(), "workers": workers}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        root = os.path.join(tmp, "VOCdevkit")
+        prefix = os.path.join(tmp, "cache")
+        ckpt = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        train_recs, val_recs = write_fixture(root, prefix, num_2007,
+                                             num_2012)
+        out["fixture_s"] = time.perf_counter() - t0
+        out["train_images"], out["val_images"] = (len(train_recs),
+                                                  len(val_recs))
+        cfg = Config(
+            model=ModelConfig(compute_dtype="bfloat16"),
+            data=DataConfig(voc_root=root, batch_size=batch,
+                            num_workers=workers, image_cache=prefix),
+            train=TrainConfig(checkpoint_dir=ckpt, device_prefetch=True,
+                              log_every_steps=0, seed=SEED))
+        train_loader = Loader(train_recs, cfg.data, 300, train=True,
+                              seed=cfg.train.seed, cache_path=prefix)
+        eval_loader = Loader(val_recs, cfg.data, 300, train=False,
+                             drop_last=False, cache_path=prefix + ".val")
+        try:
+            out["cpus"] = host_cpus()
+            # The Loader alone, host only: epoch 0 starts the workers.
+            loader_s = []
+            for epoch in range(2):
+                busy = train_loader.worker_seconds
+                t0 = time.perf_counter()
+                n = sum(len(b["images"]) for b in train_loader.epoch(epoch))
+                loader_s.append(time.perf_counter() - t0)
+            out["loader_images_per_s"] = n / loader_s[1]
+            out["loader_cold_images_per_s"] = n / loader_s[0]
+            out["loader_worker_ms"] = (train_loader.worker_seconds
+                                       - busy) / n * 1e3
+
+            trainer = Trainer(cfg, train_loader, eval_loader, device=device)
+            save_ms = []
+            save = trainer.ckpt.save
+
+            def timed_save(*args, **kwargs):
+                t = time.perf_counter()
+                save(*args, **kwargs)
+                save_ms.append((time.perf_counter() - t) * 1e3)
+
+            trainer.ckpt.save = timed_save
+            stats = {}
+            watch = (watch_copy_stage(trainer) if cuda
+                     else contextlib.nullcontext({}))
+            with watch as copied:
+                trainer.fit(2)
+            out["copy_stage_steps"] = copied.get("steps", 0)
+            stats["prefetch"] = dict(trainer.phase_stats["train"])
+            out["val_loss"] = trainer.history["test"][-1]
+            if not all(math.isfinite(x) for v in trainer.history.values()
+                       for x in v):
+                fail(f"trainer history not finite: {trainer.history}")
+
+            # Resume: a fresh Trainer picks up epoch 1's checkpoint.
+            fresh = Trainer(cfg, train_loader, eval_loader, device=device)
+            if not fresh.maybe_resume() or fresh.start_epoch != 2:
+                fail(f"resume gave start_epoch {fresh.start_epoch}")
+            if fresh.history != trainer.history:
+                fail("resumed history differs")
+            want = trainer.state.model.state_dict()
+            for name, t in fresh.state.model.state_dict().items():
+                if not torch.equal(t, want[name]):
+                    fail(f"resumed parameter {name} differs")
+            del fresh
+
+            # One more epoch without the copy stage.
+            trainer.config = dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, device_prefetch=False))
+            trainer.start_epoch = 2
+            trainer.fit(3)
+            stats["no_prefetch"] = dict(trainer.phase_stats["train"])
+            for s in stats.values():
+                s["images_per_s"] = s["images"] / s["seconds"]
+                s["input_wait_ms_per_step"] = (s["input_wait_s"] / s["steps"]
+                                               * 1e3)
+            out["train"] = stats
+            out["save_ms"] = save_ms
+            del trainer
+        finally:
+            train_loader.close()
+            eval_loader.close()
+
+        # Eval through the CLI: the val split from its cache.
+        argv = ["eval", "--voc-root", root, "--checkpoint-dir", ckpt,
+                "--image-cache", prefix, "--batch-size", str(batch)]
+        if not cuda:
+            argv += ["--device", "cpu"]
+        text = io.StringIO()
+        # evaluate_records logs its images, batches and seconds (prep,
+        # device and host pulls; the mAP arithmetic excluded).
+        setup_logging()
+        log = logging.handlers.BufferingHandler(capacity=1 << 16)
+        logger.addHandler(log)
+        nms_cuda.launches = 0
+        try:
+            with contextlib.redirect_stdout(text):
+                rc = cli.main(argv)
+        finally:
+            logger.removeHandler(log)
+        if cuda:
+            torch.cuda.synchronize()
+        launches = nms_cuda.launches
+        m = re.search(r"mAP = ([-+0-9.eEnaif]+)", text.getvalue())
+        if rc != 0 or m is None or not math.isfinite(float(m.group(1))):
+            fail(f"cli eval rc {rc}: {text.getvalue()[-300:]}")
+        runs = [re.fullmatch(r"eval: (\d+) images in (\d+) batches, "
+                             r"([0-9.]+) s", r.getMessage())
+                for r in log.buffer]
+        runs = [r for r in runs if r]
+        if len(runs) != 1:
+            fail(f"cli eval logged {len(runs)} evaluation runs")
+        images, batches = int(runs[0].group(1)), int(runs[0].group(2))
+        if cuda and launches < batches:
+            fail(f"K1 launched {launches} times in {batches} eval batches")
+        out["eval"] = {"map": float(m.group(1)), "launches": launches,
+                       "batches": batches, "images": images,
+                       "images_per_s": images / float(runs[0].group(3))}
+
+        # Detect from the checkpoint on cached val images.
+        det = Detector.from_checkpoint(cfg, device=device)
+        imgs = np.stack([quantize_uint8(preprocess_image(
+            cache.get_image(prefix + ".val", i % len(val_recs)), 300,
+            normalize=False)) for i in range(8)])
+        nms_cuda.launches = 0
+        dets = det.detect_batch(imgs)
+        if cuda:
+            torch.cuda.synchronize()
+        out["detect_launches"] = nms_cuda.launches
+        if (dets.boxes_xyxy.shape != (8, 200, 4)
+                or not torch.isfinite(dets.boxes_xyxy).all()
+                or not torch.isfinite(dets.scores).all()):
+            fail("detect_batch from the checkpoint gave malformed output")
+        if cuda and out["detect_launches"] < 1:
+            fail("K1 was not launched by detect_batch")
+        try:
+            Detector.from_checkpoint(cfg, os.path.join(tmp, "empty"),
+                                     device=device)
+            fail("from_checkpoint on an empty directory did not raise")
+        except FileNotFoundError:
+            pass
+    if native.fallbacks:
+        fail(f"{native.fallbacks} fall-throughs from the native library "
+             f"to numpy / PIL")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k1-baseline", type=Path, action="append",
@@ -1060,6 +1347,43 @@ def main(argv=None) -> int:
               f"kernel {short_name(px['function'])}, {pl['chunks']} chunks, "
               f"{tiling}; {px['registers']} registers, "
               f"{px['spill_stores']}/{px['spill_loads']} bytes spilled")
+    t_phase = time.perf_counter()
+    ts = phase_trainer_slice(device)
+    print(f"trainer slice: fixture {ts['train_images']} train + "
+          f"{ts['val_images']} val images at 500x375 in packed caches "
+          f"({ts['fixture_s']:.2f} s, no decode); Loader alone (host, "
+          f"augment on, uint8, batch {TIMING_TRAIN_BATCH}, {ts['workers']} "
+          f"workers, os.cpu_count() {ts['cpu_count']}): "
+          f"{ts['loader_images_per_s']:.1f} images/s (first epoch, workers "
+          f"starting: {ts['loader_cold_images_per_s']:.1f}), "
+          f"{ts['loader_worker_ms']:.2f} ms per image in a worker; native "
+          f"fall-throughs 0; host CPUs: {ts['cpus']} ({smi})")
+    for key, s in ts["train"].items():
+        print(f"trainer slice: Trainer.fit bf16 batch {TIMING_TRAIN_BATCH} "
+              f"{'device_prefetch on, epoch 1' if key == 'prefetch' else 'device_prefetch off, epoch 2'}"
+              f" ({smi}): train phase {s['images_per_s']:.1f} images/s "
+              f"({s['steps']} steps, {s['seconds']:.3f} s), input wait "
+              f"{s['input_wait_ms_per_step']:.3f} ms/step; train_step alone "
+              f"(unrouted, synthetic batches, train timing above) "
+              f"{tt['plain_images_per_s']:.1f} images/s")
+    print(f"trainer slice: val loss {ts['val_loss']:.4f} after epoch 1, "
+          f"checkpoint save ms per epoch "
+          f"{[round(x, 1) for x in ts['save_ms']]}; resume: start_epoch 2, "
+          f"same history, bit-equal parameters; copy stage: the batches "
+          f"of {ts['copy_stage_steps']} steps (epochs 0-1, train and test "
+          f"phases) bit-equal to their host arrays ({smi})")
+    ev = ts["eval"]
+    print(f"trainer slice: cli eval (val split from its cache, exact "
+          f"postprocess, f32, batch {TIMING_TRAIN_BATCH}) ({smi}): mAP "
+          f"{ev['map']:.4f}, {ev['images']} images in {ev['batches']} batches"
+          f", {ev['images_per_s']:.1f} images/s, K1 launches "
+          f"{ev['launches']}; Detector.from_checkpoint detect_batch(8): K1 "
+          f"launches {ts['detect_launches']}; empty directory raises "
+          f"FileNotFoundError")
+    print(f"trainer slice: the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    k1_launches = sl["launches"] + ev["launches"] + ts["detect_launches"]
+
     k2 = tt["k2"]
     k2_ops = sum(r["ops_ms"] for r in k2)
     k2_bytes = sum(r["bytes_ms"] for r in k2)
@@ -1071,7 +1395,8 @@ def main(argv=None) -> int:
         "source": "objectdetection_ssd_torch/csrc/nms.cu",
         "replaces": "objectdetection_ssd_tpu/infer/nms_pallas.py:139 "
                     "(git eb1d1b7)",
-        "launches": sl["launches"],
+        # Serving requests, cli eval's batches and the detect request.
+        "launches": k1_launches,
         "max_abs_err": worst,
         # The serving shape; every shape's numbers are in per_shape.
         "ms": serve_k1["k1"]["event_ms"],

@@ -1,19 +1,21 @@
 """Typed configuration for the PyTorch port.
 
 A copy of the constants and the dataclass fields of
-`objectdetection_ssd_tpu/config.py` that the serving path and the train
-step read.  The port keeps its own copy because it must not import the JAX
-package (whose ``__init__`` imports JAX).  Fields that only steer the TPU
-compiler (``scoped_vmem_limit_kib``) or a JAX loop form (``nms_unrolled``,
-``approx_recall_target``) are left out: they have no counterpart here.
-Gradient accumulation (``OptimConfig.grad_accum_steps``) and the
-``TrainConfig`` knobs (EMA, remat) are not ported yet.
+`objectdetection_ssd_tpu/config.py` that the ported modules read.  The port
+keeps its own copy because it must not import the JAX package (whose
+``__init__`` imports JAX).  Fields that only steer the TPU compiler
+(``scoped_vmem_limit_kib``, ``compilation_cache_dir``) or a JAX loop form
+(``nms_unrolled``, ``approx_recall_target``) are left out: they have no
+counterpart here.  Fields of features not ported yet are left out too:
+the mesh and pipeline stages (``mesh_shape``, ``pp_*``), ``remat``,
+``donate_state``, ``tensorboard_dir``, and the quantization and doctor
+configs.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 # PASCAL VOC class vocabulary: 20 foreground classes, background sentinel at
 # index 20 (reference `Util.py:26-27`, `Losses.py:171`).
@@ -26,6 +28,7 @@ NUM_CLASSES = len(VOC_CLASSES)          # 20 foreground
 BACKGROUND_CLASS = NUM_CLASSES          # 20
 NUM_CLASSES_WITH_BG = NUM_CLASSES + 1   # 21 logits
 
+CLASS_TO_ID = {name: i for i, name in enumerate(VOC_CLASSES)}
 ID_TO_CLASS = dict(enumerate(VOC_CLASSES + ("bg",)))
 
 # ImageNet normalization used by the pretrained VGG backbone
@@ -156,13 +159,71 @@ class OptimConfig:
     use_lr_schedule: bool = True
     # Linear lr warmup over the first N updates (0 = off).
     warmup_steps: int = 0
+    # Average the gradients of N micro-batches into one SGD update
+    # (`optax.MultiSteps` in the JAX package); parameters, momentum, the
+    # schedule's count and the EMA move only when a window closes.  1 = off.
+    grad_accum_steps: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """VOC data pipeline (reference `DataLists.py`, `Dataset.py`, `train.py`)."""
+
+    voc_root: str = "VOCdevkit"
+    batch_size: int = 20               # reference `train.py:29`
+    num_workers: int = 2               # reference `train.py:29`
+    max_boxes: int = 64                # pad ragged GT to this many per image
+    keep_difficult: bool = False       # reference `Dataset.py:29-31`
+    val_fraction: float = 0.1          # reference `train.py:14`
+    split_seed: int = 10               # reference `train.py:13`
+    # The reference samples the val split WITH replacement (`train.py:14`);
+    # True reproduces it exactly, False takes a clean permutation split.
+    parity_split: bool = False
+    # A missing VOC year's list file is a hard error unless this opts in
+    # (see data/voc.py:voc_file_lists).
+    allow_partial_voc: bool = False
+    augment: bool = True
+    # Augment in the native C++ pipeline (native/src/voc_native.cpp) when
+    # built: same transform semantics as the numpy path, its own
+    # deterministic random stream.
+    use_native_augment: bool = True
+    # Dtype of the image batches shipped to the device: "uint8" sends raw
+    # 0-255 pixels and the model normalizes on the device; "float32" ships
+    # host-normalized images.
+    transfer_dtype: str = "uint8"
+    # Packed decoded-image cache path prefix (`--image-cache`,
+    # data/cache.py): the train loader decodes every image once into
+    # `<prefix>.bin/.idx.npz`; eval appends `.{split}` / `.val`.
+    image_cache: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    num_epochs: int = 1000             # reference `train.py:59`
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_every_epochs: int = 1   # reference saves per epoch
+    max_checkpoints_to_keep: int = 3
+    log_every_steps: int = 20          # reference `train_function.py:99`
+    seed: int = 10
+    # A second input-pipeline stage on its own thread that copies each
+    # batch to the card (pinned memory, a side stream), so the copy of
+    # batch N+1 overlaps the step of batch N.  Same numbers either way.
+    device_prefetch: bool = False
+    # Exponential moving average of the weights, e <- d*e + (1-d)*p per
+    # optimizer update; 0.0 = off (the reference has none).
+    ema_decay: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """What a `infer.detector.Detector` reads."""
-
     priors: PriorConfig = dataclasses.field(default_factory=PriorConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
     postprocess: PostprocessConfig = dataclasses.field(
         default_factory=PostprocessConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)

@@ -6,8 +6,9 @@ filter gradients on kernel K2), SGD update and schedule step.  The batch
 is the `data/pipeline.py:collate` contract: ``images`` uint8 (B, S, S, 3)
 or normalized float, ``boxes`` (B, M, 4) f32 xyxy, ``classes`` (B, M)
 int32, ``mask`` (B, M) bool, as numpy arrays or tensors; they are moved to
-the model's device.  Gradient accumulation, EMA, remat and QAT's
-``quant_ste`` are not ported yet.
+the model's device.  Gradient accumulation and the EMA live in
+`train/state.py:TrainState`.  Remat and QAT's ``quant_ste`` are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -55,19 +56,21 @@ def _metrics(loss: MultiboxLoss) -> Dict[str, torch.Tensor]:
 
 def train_step(state: TrainState, batch: Mapping[str, object],
                priors: torch.Tensor,
-               loss_config: LossConfig = LossConfig()
+               loss_config: LossConfig = LossConfig(),
+               ema_decay: float = 0.0
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """One SGD step; returns ``(state, metrics)``, the state updated in
-    place.  Metrics are device scalars: ``loss``, ``cls_loss``,
+    """One SGD step (or micro-step under gradient accumulation); returns
+    ``(state, metrics)``, the state updated in place.  The EMA of the
+    weights (``ema_decay`` > 0 and ``state.ema`` set) moves only when the
+    parameters do.  Metrics are device scalars: ``loss``, ``cls_loss``,
     ``loc_loss`` and ``num_pos`` (f32).  The gradients stay in each
     parameter's ``.grad`` until the next step."""
     state.model.train()
     state.optimizer.zero_grad(set_to_none=True)
     loss = _loss(state, batch, priors, loss_config)
     loss.total.backward()
-    state.optimizer.step()
-    state.scheduler.step()
-    state.step += 1
+    if state.apply_gradients() and ema_decay:
+        state.update_ema(ema_decay)
     return state, _metrics(loss)
 
 

@@ -95,8 +95,8 @@ def test_detect_images_pads_and_rescales(detectors, tmp_path):
         paths.append(str(path))
     out = tdet.detect_images(paths, batch_size=3)
     assert len(out) == 2
-    batch = np.stack([pipeline.quantize_uint8(pipeline.resize_image(
-        pipeline.load_image(p), 300)) for p in paths])
+    batch = np.stack([pipeline.quantize_uint8(pipeline.preprocess_image(
+        pipeline.load_image(p), 300, normalize=False)) for p in paths])
     dets = tdet.detect_batch(batch)
     for i, (w, h) in enumerate(sizes):
         v = dets.valid[i].numpy()
@@ -108,3 +108,30 @@ def test_detect_images_pads_and_rescales(detectors, tmp_path):
             dets.boxes_xyxy[i].numpy()[v] * np.array([w, h, w, h]),
             rtol=1e-6)
         assert out[i]["labels"].dtype.kind == "U"
+
+
+def test_detect_images_matches_jax(detectors, tmp_path):
+    """F1: `detect_images` resizes through `preprocess_image` (the native
+    float resample, as the JAX package does when its library is built), so
+    both packages feed the model the same pixels.  Boxes in pixels, so
+    1e-4 of the image size."""
+    from PIL import Image
+
+    jdet, tdet = detectors
+    rng = np.random.default_rng(3)
+    paths, sizes = [], [(320, 240), (500, 375)]
+    for i, (w, h) in enumerate(sizes):
+        path = tmp_path / f"img{i}.png"
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                        ).save(path)
+        paths.append(str(path))
+    want = jdet.detect_images(paths, batch_size=2)
+    got = tdet.detect_images(paths, batch_size=2)
+    for g, w, (width, height) in zip(got, want, sizes):
+        assert len(g["scores"]) == len(w["scores"]) > 10
+        np.testing.assert_array_equal(g["classes"], w["classes"])
+        np.testing.assert_array_equal(g["labels"], w["labels"])
+        np.testing.assert_allclose(g["scores"], w["scores"], rtol=0,
+                                   atol=1e-4)
+        np.testing.assert_allclose(g["boxes_xyxy"], w["boxes_xyxy"], rtol=0,
+                                   atol=1e-4 * max(width, height))

@@ -1,5 +1,6 @@
 """The PyTorch port imports no JAX, nothing of the JAX package and no PIL,
-and its entry points refuse to fall back to the CPU without a card."""
+its data path imports no torch (the Loader's spawn workers import it), and
+its entry points refuse to fall back to the CPU without a card."""
 
 import os
 import subprocess
@@ -28,8 +29,26 @@ MODULES = (
     "objectdetection_ssd_torch.infer.postprocess",
     "objectdetection_ssd_torch.infer.detector",
     "objectdetection_ssd_torch.data.pipeline",
+    "objectdetection_ssd_torch.data.voc",
+    "objectdetection_ssd_torch.data.augment",
+    "objectdetection_ssd_torch.data.cache",
+    "objectdetection_ssd_torch.data.synthetic",
+    "objectdetection_ssd_torch.native",
+    "objectdetection_ssd_torch.eval.voc_map",
+    "objectdetection_ssd_torch.eval.evaluate",
     "objectdetection_ssd_torch.train.state",
     "objectdetection_ssd_torch.train.loop",
+    "objectdetection_ssd_torch.train.checkpoint",
+    "objectdetection_ssd_torch.train.trainer",
+    "objectdetection_ssd_torch.utils.metrics",
+    "objectdetection_ssd_torch.cli",
+)
+# What a spawn worker of the Loader imports, and the CLI's module (the
+# workers' ``__main__`` under ``python -m``): no torch.
+TORCH_FREE = (
+    "objectdetection_ssd_torch.data.pipeline",
+    "objectdetection_ssd_torch.native",
+    "objectdetection_ssd_torch.cli",
 )
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
              "objectdetection_ssd_tpu", "PIL")
@@ -42,6 +61,20 @@ def test_port_imports_no_jax_no_reference_package_no_pil():
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_data_path_and_cli_import_no_torch():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {TORCH_FREE!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'torch')\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -72,6 +105,19 @@ def test_no_silent_cpu_fallback_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
+    from objectdetection_ssd_torch.eval.evaluate import evaluate_records
+    from objectdetection_ssd_torch.train.trainer import Trainer
+
+    class Loader:
+        records = []
+
+        def __len__(self):
+            return 1
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(Config(), Loader())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate_records(Config(), {}, [])
 
 
 def test_unported_options_raise():

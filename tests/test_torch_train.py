@@ -91,9 +91,10 @@ def test_config_fields_match_jax():
         return {f.name: f.default for f in dataclasses.fields(cls)}
 
     assert fields(tconfig.LossConfig) == fields(jconfig.LossConfig)
-    jopt = fields(jconfig.OptimConfig)
-    assert jopt.pop("grad_accum_steps") == 1        # not ported yet
-    assert fields(tconfig.OptimConfig) == jopt
+    assert fields(tconfig.OptimConfig) == fields(jconfig.OptimConfig)
+    assert fields(tconfig.DataConfig) == fields(jconfig.DataConfig)
+    jtrain, ttrain = fields(jconfig.TrainConfig), fields(tconfig.TrainConfig)
+    assert ttrain == {name: jtrain[name] for name in ttrain}
     jm, tm = fields(jconfig.ModelConfig), fields(tconfig.ModelConfig)
     for name in ("freeze_stages", "dw_pallas_convs", "compute_dtype"):
         assert tm[name] == jm[name]
