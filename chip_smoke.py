@@ -22,11 +22,18 @@ layout), the frozen-conv1 step, train timing (with a bf16
 routed-vs-unrouted gradient check and a profile of both steps), the
 trainer slice (the Loader alone, three epochs of `Trainer.fit`, resume,
 `cli eval` with K1 launched for every batch, detect from the checkpoint,
-no fall-through from the native data library).  Then
-one JSON line with each kernel's numbers, the card's name and power
-limit as nvidia-smi gives them, and as the last line ``{"ok": true,
-"device": {...}}``.  Any failed check exits non-zero before that line.
-Without CUDA it exits 1 at once.  It imports no JAX.
+no fall-through from the native data library), then the ResNet-34
+family: its serving slice (bf16 `detect_batch`, f32 card vs CPU with
+non-trivial BN statistics, Soft-NMS and flip TTA card vs CPU), its train
+steps (card vs CPU with dropout 0, dropout masks from the seed), the CLI
+(`train --backbone resnet34`, `--resume`, `eval` with K1 at K = 189,
+`detect` hard and with TTA + Soft-NMS), a remat step against the plain
+one with the peak memory of each, and ResNet-34 serving, Soft-NMS, TTA,
+K1 and train-step timing.  Then one JSON line with each kernel's
+numbers, the card's name and power limit as nvidia-smi gives them, and
+as the last line ``{"ok": true, "device": {...}}``.  Any failed check
+exits non-zero before that line.  Without CUDA it exits 1 at once.  It
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -49,11 +56,14 @@ import torch
 
 SEED = 0
 SERVE_BATCHES = (1, 8, 256)     # detect_batch request sizes in the slice
+# Images of the largest request whose f32 loc/conf are also computed on
+# the CPU.
+CPU_CHECK_BATCH = 2
 TIMING_BATCH = 256
 # K1 vs plain on random (non-prefix) validity masks: the serving K, the
 # exact-eval K, and K across the word and warp boundaries.
 NMS_SHAPES = ((256, 20, 64), (8, 20, 200), (256, 20, 200), (4, 20, 1),
-              (4, 20, 33), (4, 20, 65), (4, 20, 256))
+              (4, 20, 33), (4, 20, 65), (4, 20, 189), (4, 20, 256))
 # The plain version is also run on the CPU for sets up to this many
 # candidate pairs (sets * K * K).
 NMS_CPU_PAIRS = 1 << 23
@@ -114,6 +124,15 @@ WGRAD_TOL = 1e-4
 # conv2_2).
 BF16_WGRAD_TOL = 1e-2
 PROFILE_STEPS = 3
+# The ResNet-34 family: 224 px, 189 priors; its f32 train steps card vs
+# CPU run at batch 8, so that each BN at the 1x1 taps normalizes 8 values
+# per channel (at batch 2 a BN over two values multiplies its input's
+# rounding by up to 1/sqrt(eps) ~ 316, tests/test_torch_resnet.py).
+RESNET_SIZE = 224
+RESNET_TRAIN_BATCH = 8
+# Soft-NMS on the card vs the CPU on the same loc/conf: the same f32
+# expressions, exp rounded by another library (a few ulp of scores <= 1).
+SOFT_NMS_ATOL = 1e-5
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, non-tensor f32,
 # dense bf16 tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -229,34 +248,25 @@ def same_detections(a, b, atol: float) -> bool:
                                    atol=atol, rtol=0))
 
 
-def phase_slice(device, state_dict, batches=SERVE_BATCHES,
-                cpu_check_batch: int = 2) -> dict:
-    """Serve detect_batch requests in f32 (TF32 off) and check them."""
-    from objectdetection_ssd_torch.config import Config, ModelConfig
+def serve_requests(det, images: dict, what: str) -> tuple:
+    """The serving main path: ``det.detect_batch`` on each batch of
+    ``images`` (K1's count set to 0 just before, read just after), each
+    result well formed, and the kernel path's detections equal to the
+    plain-NMS path's on the same loc/conf.  Returns (K1 launches, valid
+    detections per batch, candidates suppressed)."""
     from objectdetection_ssd_torch.infer import nms_cuda
     from objectdetection_ssd_torch.infer import postprocess as pp
-    from objectdetection_ssd_torch.infer.detector import Detector
-    from objectdetection_ssd_torch.models.ssd import build_model
-
-    det = Detector(Config(), state_dict, device=device)
-    gen = torch.Generator().manual_seed(SEED + 1)
-    images = {b: torch.randint(0, 256, (b, 300, 300, 3), generator=gen,
-                               dtype=torch.uint8).to(device)
-              for b in batches}
-
-    # The main path: counts set to 0 just before, read just after.
     nms_cuda.launches = 0
-    served = {b: det.detect_batch(images[b]) for b in batches}
-    if device.type == "cuda":
+    served = {b: det.detect_batch(x) for b, x in images.items()}
+    if det.device.type == "cuda":
         torch.cuda.synchronize()
     launches = nms_cuda.launches
 
     n_valid, n_suppressed = {}, 0
-    for b in batches:
-        d = served[b]
+    for b, d in served.items():
         if d.boxes_xyxy.shape != (b, 200, 4) or not torch.isfinite(
                 d.boxes_xyxy).all() or not torch.isfinite(d.scores).all():
-            fail(f"detect_batch({b}) gave malformed detections")
+            fail(f"{what} detect_batch({b}) gave malformed detections")
         n_valid[b] = int(d.valid.sum())
         # Kernel path vs plain NMS on the same loc/conf.
         loc, conf = det.forward(images[b])
@@ -267,19 +277,41 @@ def phase_slice(device, state_dict, batches=SERVE_BATCHES,
         n_suppressed += int((valid & ~keep).sum())
         plain = pp.finalize(cand, scores, keep, det.pp_config.top_k)
         if not same_detections(kern, plain, atol=1e-6):
-            fail(f"batch {b}: kernel-path detections != plain-NMS path")
+            fail(f"{what} batch {b}: kernel-path detections != plain-NMS "
+                 f"path")
     if n_suppressed == 0 or min(n_valid.values()) == 0:
-        fail(f"the slice gave NMS no work ({n_valid}, {n_suppressed})")
+        fail(f"the {what} slice gave NMS no work ({n_valid}, "
+             f"{n_suppressed})")
+    return launches, n_valid, n_suppressed
+
+
+def rel_diff(got, want) -> float:
+    """The largest |got - want| of each pair of tensors over that of
+    ``want`` (on the CPU), the worst pair."""
+    return max(float((g.cpu() - w).abs().max() / w.abs().max())
+               for g, w in zip(got, want))
+
+
+def phase_slice(device, state_dict, batches=SERVE_BATCHES) -> dict:
+    """Serve detect_batch requests in f32 (TF32 off) and check them."""
+    from objectdetection_ssd_torch.config import Config, ModelConfig
+    from objectdetection_ssd_torch.infer.detector import Detector
+    from objectdetection_ssd_torch.models.ssd import build_model
+
+    det = Detector(Config(), state_dict, device=device)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    images = {b: torch.randint(0, 256, (b, 300, 300, 3), generator=gen,
+                               dtype=torch.uint8).to(device)
+              for b in batches}
+
+    launches, n_valid, n_suppressed = serve_requests(det, images, "SSD300")
 
     # The card's loc/conf against the same model on the CPU.
-    x = images[max(batches)][:cpu_check_batch]
-    loc, conf = det.forward(x)
+    x = images[max(batches)][:CPU_CHECK_BATCH]
     cpu_model = build_model(ModelConfig(), device="cpu")
     cpu_model.load_state_dict(state_dict, strict=True)
     with torch.inference_mode():
-        cloc, cconf = cpu_model(x.cpu())
-    rel = max(float((loc.cpu() - cloc).abs().max() / cloc.abs().max()),
-              float((conf.cpu() - cconf).abs().max() / cconf.abs().max()))
+        rel = rel_diff(det.forward(x), cpu_model(x.cpu()))
     # Conv algorithms sum in another order on the card (and may use
     # Winograd/FFT); 1e-3 of each output's largest magnitude.
     if not rel <= 1e-3:
@@ -331,10 +363,12 @@ def phase_dw_vs_plain(device, shapes=DW_SHAPES, unaligned=DW_UNALIGNED,
     return rows
 
 
-def synthetic_batch(batch: int, gen: torch.Generator) -> dict:
-    """A dense train batch: uint8 images and 1..MAX_BOXES boxes per image
-    (normalized xyxy, classes 0..19), the rest padded rows."""
-    images = torch.randint(0, 256, (batch, 300, 300, 3), generator=gen,
+def synthetic_batch(batch: int, gen: torch.Generator,
+                    size: int = 300) -> dict:
+    """A dense train batch: uint8 images of ``size`` px and 1..MAX_BOXES
+    boxes per image (normalized xyxy, classes 0..19), the rest padded
+    rows."""
+    images = torch.randint(0, 256, (batch, size, size, 3), generator=gen,
                            dtype=torch.uint8)
     boxes = torch.zeros(batch, MAX_BOXES, 4)
     classes = torch.zeros(batch, MAX_BOXES, dtype=torch.int32)
@@ -360,7 +394,8 @@ def train_init_state_dict(seed: int = SEED) -> dict:
     return {k: v.clone() for k, v in model.state_dict().items()}
 
 
-def _train_run(device, model_config, init_sd, batches, priors):
+def _train_run(device, model_config, init_sd, batches, priors,
+               seed: int = 0):
     from objectdetection_ssd_torch.config import OptimConfig
     from objectdetection_ssd_torch.train.loop import train_step
     from objectdetection_ssd_torch.train.state import create_train_state
@@ -368,14 +403,13 @@ def _train_run(device, model_config, init_sd, batches, priors):
                                state_dict=init_sd)
     losses = []
     for batch in batches:
-        state, metrics = train_step(state, batch, priors)
+        state, metrics = train_step(state, batch, priors, seed=seed)
         losses.append(float(metrics["loss"]))
     return state, losses
 
 
 def phase_train_slice(device, steps: int = TRAIN_STEPS,
-                      batch: int = TRAIN_BATCH, cpu_check: bool = True
-                      ) -> dict:
+                      batch: int = TRAIN_BATCH) -> dict:
     """`train_step` f32 with the four conv1/conv2 convs routed through K2:
     the main path (launch counts read around it), then the same steps on
     the CPU, and one step against the cuDNN-wgrad route."""
@@ -404,11 +438,7 @@ def phase_train_slice(device, steps: int = TRAIN_STEPS,
         fail(f"{copies} gradient layout copies in {steps} routed steps: a "
              f"routed conv's dX left channels_last")
     out = {"losses": losses, "launches": launches, "layout_copies": copies,
-           "loss_rel": 0.0, "delta_rel": 0.0, "delta_norm_rel": 0.0,
-           "delta_worst": None,
-           "wgrad_rel": 0.0, "dx_rel": routed_dx_check(device, batch)}
-    if not cpu_check:
-        return out
+           "dx_rel": routed_dx_check(device, batch)}
 
     cpu_state, cpu_losses = _train_run(torch.device("cpu"), routed, init_sd,
                                        batches, priors)
@@ -416,18 +446,8 @@ def phase_train_slice(device, steps: int = TRAIN_STEPS,
                           for a, b in zip(losses, cpu_losses))
     if not out["loss_rel"] <= TRAIN_LOSS_RTOL:
         fail(f"card vs CPU losses {losses} vs {cpu_losses}")
-    cpu_params = dict(cpu_state.model.named_parameters())
-    rows = []
-    for name, p in state.model.named_parameters():
-        want = cpu_params[name].detach() - init_sd[name]
-        got = p.detach().cpu() - init_sd[name]
-        diff, scale = float((got - want).abs().max()), float(
-            want.abs().max())
-        norm = float((got - want).norm() / want.norm()) if scale > 0 else 0.0
-        # A parameter that no gradient reached must not move on the card.
-        rel = diff / scale if scale > 0 else (0.0 if diff == 0 else math.inf)
-        rows.append((rel, norm, name))
-    rows.sort(key=lambda r: -r[0] if math.isfinite(r[0]) else -math.inf)
+    rows = change_rows(dict(state.model.named_parameters()),
+                       dict(cpu_state.model.named_parameters()), init_sd)
     worst, _, worst_name = rows[0]
     out["delta_rel"], out["delta_worst"] = worst, worst_name
     out["delta_norm_rel"] = max(r[1] for r in rows)
@@ -451,6 +471,24 @@ def phase_train_slice(device, steps: int = TRAIN_STEPS,
     if not out["wgrad_rel"] <= WGRAD_TOL:
         fail(f"K2 vs cuDNN wgrad differ by {out['wgrad_rel']:.3e}")
     return out
+
+
+def change_rows(card: dict, cpu: dict, init_sd: dict) -> list:
+    """(max-abs rel, norm rel, name) per tensor of ``card``: its change
+    from ``init_sd`` against the CPU's change, relative to the CPU's
+    largest change and in norm; the worst first.  A tensor that did not
+    move on the CPU must not move on the card."""
+    rows = []
+    for name, t in card.items():
+        want = cpu[name].detach().float() - init_sd[name].float()
+        got = t.detach().cpu().float() - init_sd[name].float()
+        diff, scale = float((got - want).abs().max()), float(
+            want.abs().max())
+        norm = float((got - want).norm() / want.norm()) if scale > 0 else 0.0
+        rel = diff / scale if scale > 0 else (0.0 if diff == 0 else math.inf)
+        rows.append((rel, norm, name))
+    rows.sort(key=lambda r: -r[0] if math.isfinite(r[0]) else -math.inf)
+    return rows
 
 
 def routed_dx_check(device, batch: int = TRAIN_BATCH) -> float:
@@ -606,6 +644,20 @@ def profile_steps(states: dict, batch: dict, priors,
         out[key] = {"ops": ops, "aten": aten, "device_ms": sum(ops.values()),
                     "wall_ms": wall_s / steps * 1e3}
     return out
+
+
+def print_profile(key: str, p: dict) -> None:
+    """One line of `profile_steps`' numbers for configuration ``key``: the
+    device and host ms per step and the 10 costliest device operations,
+    then the 8 costliest aten operators (device ms, children included)."""
+    top = sorted(p["ops"].items(), key=lambda kv: -kv[1])[:10]
+    aten = sorted(p["aten"].items(), key=lambda kv: -kv[1])[:8]
+    print(f"profile: {key} bf16 step ({PROFILE_STEPS} steps, "
+          f"torch.profiler): device ops {p['device_ms']:.3f} ms/step, "
+          f"host {p['wall_ms']:.3f} ms/step under the profiler; top 10: "
+          + "; ".join(f"{ms:.3f} ms {name[:90]}" for name, ms in top)
+          + "; top aten: " + "; ".join(f"{ms:.3f} ms {name}"
+                                       for name, ms in aten))
 
 
 def phase_train_timing(batch: int = TIMING_TRAIN_BATCH) -> dict:
@@ -833,6 +885,29 @@ def conv_flops_per_image(model, image) -> int:
     return total
 
 
+def chained_step_s(det, x: torch.Tensor) -> float:
+    """Seconds per ``det.detect_batch`` step on ``x``: the best of 3
+    windows of 10 steps after 3 warm-up steps.  Each step's input
+    depends on the last step's detections (``x + 0 * sum(scores)``), so
+    steps cannot overlap or be skipped (bench.py:100-118)."""
+
+    def step(x):
+        dets = det.detect_batch(x)
+        return x + (dets.scores.sum() * 0).to(x.dtype)
+
+    for _ in range(3):
+        x = step(x)
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(10):
+            x = step(x)
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) / 10)
+    return best
+
+
 def phase_timing(state_dict, k1_baselines=None) -> dict:
     """bf16, channels_last, batch 256: end to end with bench.py's chained
     dependency, forward alone, postprocess alone, and K1 alone on the
@@ -849,24 +924,7 @@ def phase_timing(state_dict, k1_baselines=None) -> dict:
     x = torch.randn(TIMING_BATCH, 300, 300, 3, generator=gen,
                     device="cuda").to(torch.bfloat16)
 
-    def step(x):
-        # Each step consumes the previous step's detections, so steps
-        # cannot overlap or be skipped (bench.py:100-118).
-        dets = det.detect_batch(x)
-        s = dets.scores.sum() * 1e-9
-        return x * (1.0 + s * 1e-6)
-
-    for _ in range(3):
-        x = step(x)
-    float(x.float().sum())
-    n_iters, best = 10, float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(n_iters):
-            x = step(x)
-        float(x.float().sum())                      # fence
-        best = min(best, (time.perf_counter() - t0) / n_iters)
-
+    best = chained_step_s(det, x)
     exact = dataclasses.replace(det.pp_config, use_approx_top_k=False,
                                 anchor_prefilter=0, per_class_top_k=200)
     with torch.inference_mode():
@@ -1168,6 +1226,499 @@ def phase_trainer_slice(device, num_2007: int = 448, num_2012: int = 192,
     return out
 
 
+def resnet_config(**kw):
+    from objectdetection_ssd_torch.config import ModelConfig
+    return ModelConfig(backbone="resnet34", image_size=RESNET_SIZE, **kw)
+
+
+def seeded_resnet_state_dict(seed: int = SEED) -> dict:
+    """Random SSD-ResNet34 weights (flax init) from ``seed``, with every
+    BN's scale, bias and running statistics drawn away from their init
+    (scale U(0.5, 1.5), bias N(0, 0.2), mean N(0, 0.2), var U(0.5, 2)) and
+    the conf biases ~ N(0, 3), so that NMS has work."""
+    from objectdetection_ssd_torch.models.layers import BatchNorm
+    from objectdetection_ssd_torch.models.ssd import build_model
+    gen = torch.Generator().manual_seed(seed)
+    model = build_model(resnet_config(), device="cpu", generator=gen,
+                        train=True)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                c = m.weight.shape[0]
+                m.weight.copy_(torch.rand(c, generator=gen) + 0.5)
+                m.bias.copy_(torch.randn(c, generator=gen) * 0.2)
+                m.running_mean.copy_(torch.randn(c, generator=gen) * 0.2)
+                m.running_var.copy_(torch.rand(c, generator=gen) * 1.5 + 0.5)
+        for tap in ("t4", "t2", "t1"):
+            bias = model.get_submodule(f"conf_{tap}").bias
+            bias.copy_(torch.randn(bias.shape, generator=gen) * 3.0)
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def phase_resnet_slice(device, state_dict, batches=SERVE_BATCHES) -> dict:
+    """ResNet-34 serving.  The main path: `detect_batch` in bf16 at
+    ``batches`` (K1 counted around it), each held against the plain-NMS
+    path on the same loc/conf.  Then f32: the card's loc/conf against the
+    CPU's, and Soft-NMS (both methods) and flip TTA on the card against
+    the CPU on the same inputs."""
+    from objectdetection_ssd_torch.config import Config
+    from objectdetection_ssd_torch.infer import nms_cuda
+    from objectdetection_ssd_torch.infer import postprocess as pp
+    from objectdetection_ssd_torch.infer.detector import (
+        Detector, forward_for_postprocess)
+
+    det = Detector(Config(model=resnet_config(compute_dtype="bfloat16")),
+                   state_dict, device=device)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    images = {b: torch.randint(0, 256, (b, RESNET_SIZE, RESNET_SIZE, 3),
+                               generator=gen, dtype=torch.uint8).to(device)
+              for b in batches}
+
+    launches, n_valid, n_suppressed = serve_requests(det, images,
+                                                     "ResNet-34")
+    if device.type == "cuda" and launches != len(batches):
+        fail(f"K1 launched {launches} times for {len(batches)} ResNet-34 "
+             f"requests")
+
+    # f32: the card's loc/conf against the CPU's.
+    cfg32 = Config(model=resnet_config())
+    det32 = Detector(cfg32, state_dict, device=device)
+    cpu32 = Detector(cfg32, state_dict, device="cpu")
+    x = images[max(batches)][:CPU_CHECK_BATCH]
+    rel = rel_diff(det32.forward(x), cpu32.forward(x.cpu()))
+    # Conv algorithms sum in another order on the card; 1e-3 of each
+    # output's largest magnitude, as for SSD300.
+    if not rel <= 1e-3:
+        fail(f"ResNet-34 card vs CPU loc/conf differ by {rel:.3e}")
+
+    # Soft-NMS and TTA: the merged loc/conf card vs CPU, then the
+    # postprocess on the card against the CPU's on the card's numbers.
+    out = {"launches": launches, "valid": n_valid,
+           "suppressed": n_suppressed, "card_vs_cpu_rel": rel, "opt_in": {}}
+    for name, kw in (("soft_gaussian", {"nms_method": "soft_gaussian"}),
+                     ("soft_linear", {"nms_method": "soft_linear"}),
+                     ("tta_flip", {"tta_flip": True}),
+                     ("tta_flip+soft_gaussian", {"tta_flip": True,
+                                                 "nms_method":
+                                                 "soft_gaussian"})):
+        cfg = dataclasses.replace(cfg32.postprocess, **kw)
+        card = Detector(cfg32, state_dict, postprocess_config=cfg,
+                        device=device)
+        cpu = Detector(cfg32, state_dict, postprocess_config=cfg,
+                       device="cpu")
+        with torch.inference_mode():
+            merged = forward_for_postprocess(card.model, x, card.priors, cfg,
+                                             card.mirror_perm)
+            cpu_merged = forward_for_postprocess(cpu.model, x.cpu(),
+                                                 cpu.priors, cfg,
+                                                 cpu.mirror_perm)
+        merged_rel = rel_diff(merged[:2], cpu_merged[:2])
+        if not merged_rel <= 1e-3:
+            fail(f"{name}: card vs CPU merged loc/conf differ by "
+                 f"{merged_rel:.3e}")
+        nms_cuda.launches = 0
+        got = pp.postprocess(*merged, cfg)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        k1 = nms_cuda.launches
+        want = pp.postprocess(*(t.cpu() for t in merged), cfg)
+        if not same_detections(pp.Detections(*(t.cpu() for t in got)), want,
+                               atol=SOFT_NMS_ATOL):
+            fail(f"{name}: card detections differ from the CPU's")
+        if int(got.valid.sum()) == 0:
+            fail(f"{name}: no detections, the check is vacuous")
+        if cfg.nms_method != "hard" and k1:
+            fail(f"{name}: Soft-NMS launched K1")
+        if cfg.tta_flip and card.mirror_perm is None:
+            fail(f"{name}: the ResNet-34 priors found no mirror pairing")
+        out["opt_in"][name] = {"valid": int(got.valid.sum()),
+                               "merged_rel": merged_rel, "k1": k1}
+    return out
+
+
+def phase_resnet_train(device, steps: int = TRAIN_STEPS,
+                       batch: int = RESNET_TRAIN_BATCH) -> dict:
+    """ResNet-34 `train_step` in f32 (frozen trunk).  Dropout 0: the card
+    against the CPU, losses and the change of every parameter and running
+    statistic; the trunk bit-unchanged.  Dropout 0.4: finite losses, the
+    same first loss from the same seed, another from another seed, and a
+    mask that repeats from (seed, step) and changes with the step."""
+    from objectdetection_ssd_torch.ops.priors import resnet34_priors
+    from objectdetection_ssd_torch.train.loop import dropout_generator
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    batches = [synthetic_batch(batch, gen, RESNET_SIZE)
+               for _ in range(steps)]
+    priors = torch.tensor(resnet34_priors())
+    init_sd = seeded_resnet_state_dict()
+    no_drop = resnet_config(dropout_rate=0.0)
+
+    state, losses = _train_run(device, no_drop, init_sd, batches, priors)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"ResNet-34 train losses not finite: {losses}")
+    card_sd = state.model.state_dict()
+    for name, t in card_sd.items():
+        if name.startswith("trunk.") and not torch.equal(t.cpu(),
+                                                         init_sd[name]):
+            fail(f"the frozen trunk's {name} changed")
+    out = {"losses": losses}
+    cpu_state, cpu_losses = _train_run(torch.device("cpu"), no_drop,
+                                       init_sd, batches, priors)
+    out["loss_rel"] = max(abs(a - b) / abs(b)
+                          for a, b in zip(losses, cpu_losses))
+    if not out["loss_rel"] <= TRAIN_LOSS_RTOL:
+        fail(f"ResNet-34 card vs CPU losses {losses} vs {cpu_losses}")
+    cpu_sd = cpu_state.model.state_dict()
+    # A loc head's conv bias feeds a train-mode BN, which removes it: its
+    # gradient is 0 up to rounding on both sides, so its change is noise
+    # against noise and is left out.
+    moving = {n: t for n, t in card_sd.items()
+              if not n.startswith("trunk.")
+              and not re.fullmatch(r"loc_t\d\.conv\.bias", n)}
+    rows = change_rows(moving, cpu_sd, init_sd)
+    worst, _, worst_name = rows[0]
+    out["delta_rel"], out["delta_worst"] = worst, worst_name
+    out["delta_norm_rel"] = max(r[1] for r in rows)
+    out["stats_rel"] = max(r[0] for r in rows if "running" in r[2])
+    print("resnet34 train: card vs CPU changes of parameters and running "
+          "statistics, worst tensors (max-abs rel, norm rel): "
+          + "; ".join(f"{n} {a:.3e} {b:.3e}" for a, b, n in rows[:4]))
+    if not (worst <= TRAIN_DELTA_TOL
+            and out["delta_norm_rel"] <= TRAIN_DELTA_NORM_TOL):
+        fail(f"ResNet-34 card vs CPU changes differ: {worst:.3e} of the "
+             f"largest ({worst_name}), {out['delta_norm_rel']:.3e} in norm")
+
+    runs = {}
+    for key, seed in (("a", SEED), ("b", SEED), ("c", SEED + 1)):
+        state, runs[key] = _train_run(device, resnet_config(), init_sd,
+                                      batches, priors, seed=seed)
+    if not all(math.isfinite(x) for v in runs.values() for x in v):
+        fail(f"ResNet-34 dropout losses not finite: {runs}")
+    if not (abs(runs["a"][0] - runs["b"][0]) <= 1e-6 * abs(runs["b"][0])
+            and abs(runs["a"][0] - runs["c"][0]) > 1e-4 * abs(runs["c"][0])):
+        fail(f"ResNet-34 dropout losses do not follow the seed: {runs}")
+    state.step = 7
+    drop = state.model.neck_down.drop
+    drop.train()
+    ones = torch.ones(2, 256, 4, 4, device=next(
+        state.model.parameters()).device)
+    masks = [drop(ones, dropout_generator(state, SEED)) != 0
+             for _ in range(2)]
+    state.step = 8
+    masks.append(drop(ones, dropout_generator(state, SEED)) != 0)
+    if not (torch.equal(masks[0], masks[1])
+            and not torch.equal(masks[0], masks[2])):
+        fail("ResNet-34 dropout masks do not follow (seed, step)")
+    out["dropout_losses"] = runs
+    return out
+
+
+def phase_resnet_trainer(device, num_2007: int = 448, num_2012: int = 192,
+                         batch: int = TIMING_TRAIN_BATCH,
+                         workers: int = 0) -> dict:
+    """The ResNet-34 family through the CLI on the trainer slice's
+    `write_fixture` VOCdevkit (packed caches, 224 px): `cli train
+    --backbone resnet34 --bf16` for two epochs, resume into a fresh
+    Trainer (bit-equal), `cli train --resume` for a third epoch (the frozen
+    trunk bit-unchanged), `cli eval` (exact postprocess, K1 at K = 189 per
+    batch) and `cli detect` hard and with `--tta-flip --nms-method
+    soft_gaussian`.  Each `cli train` run's last train phase gives its
+    images/s and input wait (`Trainer.phase_stats`): epoch 1 with the
+    Loader's workers warm, and the resumed epoch 2 with workers starting.
+    The card's machine has no PIL, so `cli detect` reads its images'
+    pixels from the val cache."""
+    import io
+    import os
+    import tempfile
+
+    from objectdetection_ssd_torch import cli, native
+    from objectdetection_ssd_torch.config import (Config, DataConfig,
+                                                  TrainConfig)
+    from objectdetection_ssd_torch.data import cache
+    from objectdetection_ssd_torch.data import pipeline as data_pipeline
+    from objectdetection_ssd_torch.data.pipeline import Loader
+    from objectdetection_ssd_torch.infer import nms_cuda
+    from objectdetection_ssd_torch.train.checkpoint import CheckpointManager
+    from objectdetection_ssd_torch.train.trainer import Trainer
+
+    cuda = device.type == "cuda"
+    native.fallbacks = 0
+    workers = workers or min(8, os.cpu_count() or 1)
+    out = {"workers": workers}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_r34_") as tmp:
+        root = os.path.join(tmp, "VOCdevkit")
+        prefix = os.path.join(tmp, "cache")
+        ckpt = os.path.join(tmp, "ckpt")
+        train_recs, val_recs = write_fixture(root, prefix, num_2007,
+                                             num_2012)
+        out["train_images"], out["val_images"] = (len(train_recs),
+                                                  len(val_recs))
+        common = ["--voc-root", root, "--checkpoint-dir", ckpt,
+                  "--backbone", "resnet34"] + ([] if cuda
+                                               else ["--device", "cpu"])
+        train_argv = ["train", "--bf16", "--image-cache", prefix,
+                      "--batch-size", str(batch), "--num-workers",
+                      str(workers)] + common
+
+        def run(argv) -> str:
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rc = cli.main(argv)
+            if rc != 0:
+                fail(f"cli {argv[0]} rc {rc}: {text.getvalue()[-300:]}")
+            return text.getvalue()
+
+        # The train phase of each `cli train` run's last epoch.
+        phases = []
+        fit = Trainer.fit
+
+        def recording_fit(self, *args, **kwargs):
+            state = fit(self, *args, **kwargs)
+            s = dict(self.phase_stats["train"])
+            s["images_per_s"] = s["images"] / s["seconds"]
+            s["input_wait_ms_per_step"] = s["input_wait_s"] / s["steps"] * 1e3
+            phases.append(s)
+            return state
+
+        Trainer.fit = recording_fit
+        try:
+            t0 = time.perf_counter()
+            run(train_argv + ["--epochs", "2"])
+            out["train_s"] = time.perf_counter() - t0
+        finally:
+            Trainer.fit = fit
+        mgr = CheckpointManager(ckpt)
+        saved1, _, _ = mgr.load(1)
+
+        # Resume into a fresh Trainer, as `--resume` builds it.
+        cfg = Config(model=resnet_config(compute_dtype="bfloat16"),
+                     data=DataConfig(voc_root=root, batch_size=batch,
+                                     num_workers=0, image_cache=prefix),
+                     train=TrainConfig(checkpoint_dir=ckpt))
+        loader = Loader(train_recs, cfg.data, RESNET_SIZE, train=True,
+                        seed=cfg.train.seed, cache_path=prefix)
+        try:
+            fresh = Trainer(cfg, loader, device=device)
+            if not fresh.maybe_resume() or fresh.start_epoch != 2:
+                fail(f"ResNet-34 resume gave start_epoch {fresh.start_epoch}")
+            for name, t in fresh.state.model.state_dict().items():
+                if not torch.equal(t.cpu(), saved1["model"][name]):
+                    fail(f"resumed ResNet-34 entry {name} differs")
+            del fresh
+        finally:
+            loader.close()
+
+        Trainer.fit = recording_fit
+        try:
+            t0 = time.perf_counter()
+            run(train_argv + ["--epochs", "3", "--resume"])
+            out["resume_s"] = time.perf_counter() - t0
+        finally:
+            Trainer.fit = fit
+        if len(phases) != 2:
+            fail(f"{len(phases)} Trainer.fit calls in two cli train runs")
+        out["warm"], out["resumed"] = phases
+        saved2, meta, _ = mgr.load(2)
+        moved = {name for name, t in saved2["model"].items()
+                 if not torch.equal(t, saved1["model"][name])}
+        if any(n.startswith("trunk.") for n in moved) or not moved:
+            fail(f"epoch 2 moved {sorted(moved)[:4]}...: the frozen trunk "
+                 f"must stay, the rest must train")
+        out["train_loss"] = meta["history"]["train"]
+
+        nms_cuda.launches = 0
+        text = run(["eval", "--image-cache", prefix, "--batch-size",
+                    str(batch)] + common)
+        if cuda:
+            torch.cuda.synchronize()
+        m = re.search(r"mAP = ([-+0-9.eEnaif]+)", text)
+        batches = -(-len(val_recs) // batch)
+        if m is None or not math.isfinite(float(m.group(1))):
+            fail(f"ResNet-34 cli eval: {text[-300:]}")
+        if cuda and nms_cuda.launches != batches:
+            fail(f"K1 launched {nms_cuda.launches} times in {batches} "
+                 f"ResNet-34 eval batches")
+        out["eval"] = {"map": float(m.group(1)), "batches": batches,
+                       "launches": nms_cuda.launches}
+
+        paths = [r.image_path for r in val_recs[:8]]
+        index = {p: i for i, p in enumerate(r.image_path for r in val_recs)}
+        load_image = data_pipeline.load_image
+        data_pipeline.load_image = lambda p: cache.get_image(
+            prefix + ".val", index[p])
+        try:
+            out["detect"] = {}
+            for key, extra in (("hard", []),
+                               ("tta_flip+soft_gaussian",
+                                ["--tta-flip", "--nms-method",
+                                 "soft_gaussian"])):
+                nms_cuda.launches = 0
+                text = run(["detect", *paths] + extra + common)
+                if cuda:
+                    torch.cuda.synchronize()
+                lines = text.splitlines()
+                if [ln for ln in lines if not ln.startswith(" ")] != paths:
+                    fail(f"ResNet-34 cli detect {key}: {text[-300:]}")
+                want = 0 if extra else 1
+                if cuda and nms_cuda.launches != want:
+                    fail(f"cli detect {key}: K1 launched "
+                         f"{nms_cuda.launches} times")
+                out["detect"][key] = {"lines": len(lines) - len(paths),
+                                      "launches": nms_cuda.launches}
+        finally:
+            data_pipeline.load_image = load_image
+    if native.fallbacks:
+        fail(f"{native.fallbacks} fall-throughs from the native library")
+    return out
+
+
+def phase_remat_step(device, batch: int = TIMING_TRAIN_BATCH) -> dict:
+    """One bf16 SSD300 step with the conv1/conv2 convs routed through K2,
+    without and with remat, from the same weights and batch, cuDNN set
+    deterministic: the loss and every gradient equal to 1e-6 of its
+    largest (the recomputed forward is the same computation), K2 launched
+    4 times in each, and on the card the peak memory of each step above
+    the state's, which remat must lower."""
+    from objectdetection_ssd_torch.config import ModelConfig, OptimConfig
+    from objectdetection_ssd_torch.ops import dw_cuda
+    from objectdetection_ssd_torch.ops.priors import ssd300_priors
+    from objectdetection_ssd_torch.train.loop import train_step
+    from objectdetection_ssd_torch.train.state import create_train_state
+
+    cuda = device.type == "cuda"
+    gen = torch.Generator().manual_seed(SEED + 13)
+    b = {k: v.to(device) for k, v in synthetic_batch(batch, gen).items()}
+    priors = torch.tensor(ssd300_priors(), device=device)
+    init_sd = train_init_state_dict()
+    cfg = ModelConfig(compute_dtype="bfloat16", dw_pallas_convs=ROUTED)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for remat in (False, True):
+            state = create_train_state(cfg, OptimConfig(), device=device,
+                                       state_dict=init_sd)
+            train_step(state, b, priors, remat=remat)      # warm-up
+            state.model.load_state_dict(init_sd)
+            state.optimizer.zero_grad(set_to_none=True)
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            dw_cuda.launches = 0
+            t0 = time.perf_counter()
+            _, metrics = train_step(state, b, priors, remat=remat)
+            if cuda:
+                torch.cuda.synchronize()
+            row = {"loss": float(metrics["loss"]),
+                   "step_ms": (time.perf_counter() - t0) * 1e3,
+                   "launches": dw_cuda.launches,
+                   "peak_mb": ((torch.cuda.max_memory_allocated() - base)
+                               / 2**20 if cuda else None),
+                   "grads": {n: p.grad.float().cpu() for n, p in
+                             state.model.named_parameters()}}
+            runs[remat] = row
+            del state
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    plain, remat = runs[False], runs[True]
+    rel = max(float((remat["grads"][n] - g).abs().max() / g.abs().max())
+              for n, g in plain["grads"].items() if g.abs().max() > 0)
+    loss_rel = abs(remat["loss"] - plain["loss"]) / abs(plain["loss"])
+    if not (rel <= 1e-6 and loss_rel <= 1e-6):
+        fail(f"remat step differs from the plain step: loss {loss_rel:.3e}, "
+             f"gradients {rel:.3e}")
+    if cuda and (plain["launches"], remat["launches"]) != (4, 4):
+        fail(f"K2 launched {plain['launches']} / {remat['launches']} times "
+             f"in the plain / remat steps")
+    if cuda and not remat["peak_mb"] < plain["peak_mb"]:
+        fail(f"remat did not lower the step's peak memory "
+             f"({remat['peak_mb']:.1f} vs {plain['peak_mb']:.1f} MiB)")
+    return {"grad_rel": rel, "loss_rel": loss_rel,
+            "launches": plain["launches"] + remat["launches"],
+            **{f"{key}_{k}": row[k] for key, row in (("plain", plain),
+                                                     ("remat", remat))
+               for k in ("peak_mb", "step_ms", "loss")}}
+
+
+def phase_resnet_timing(state_dict) -> dict:
+    """ResNet-34 serving, bf16, batch 256: end to end with the chained
+    dependency of `phase_timing`, the forward, the postprocess (hard,
+    Soft-NMS gaussian and linear), `detect_batch` with and without flip
+    TTA, and K1 on the candidates of the serving path (K = 64) and of the
+    exact-eval path (K = 189)."""
+    from objectdetection_ssd_torch.config import Config
+    from objectdetection_ssd_torch.infer import postprocess as pp
+    from objectdetection_ssd_torch.infer.detector import Detector
+
+    cfg = Config(model=resnet_config(compute_dtype="bfloat16"))
+    det = Detector(cfg, state_dict, device="cuda")
+    tta = Detector(cfg, state_dict, postprocess_config=dataclasses.replace(
+        cfg.postprocess, tta_flip=True), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    x = torch.randint(0, 256, (TIMING_BATCH, RESNET_SIZE, RESNET_SIZE, 3),
+                      generator=gen, device="cuda", dtype=torch.uint8)
+
+    best = chained_step_s(det, x)
+    exact = dataclasses.replace(det.pp_config, use_approx_top_k=False,
+                                anchor_prefilter=0, per_class_top_k=200)
+    out = {"images_per_s": TIMING_BATCH / best, "step_ms": best * 1e3}
+    with torch.inference_mode():
+        out["forward_ms"] = cuda_ms(lambda: det.forward(x), iters=10)
+        loc, conf = det.forward(x)
+        for method in ("hard", "soft_gaussian", "soft_linear"):
+            c = dataclasses.replace(det.pp_config, nms_method=method)
+            out[f"postprocess_{method}_ms"] = cuda_ms(
+                lambda c=c: pp.postprocess(loc, conf, det.priors, c),
+                iters=5 if method != "hard" else 20, warmup=1)
+        out["detect_ms"] = cuda_ms(lambda: det.detect_batch(x), iters=5)
+        out["detect_tta_ms"] = cuda_ms(lambda: tta.detect_batch(x), iters=5)
+        k1 = []
+        for pp_config in (det.pp_config, exact):
+            cand, _, valid = pp.select_candidates(loc, conf, det.priors,
+                                                  pp_config)
+            k1.append(k1_timing(cand, valid, {}))
+            del cand, valid
+    flops = conv_flops_per_image(det.model, x[:1]) * TIMING_BATCH
+    out.update(k1=k1, gflop_per_image=flops / TIMING_BATCH / 1e9,
+               forward_tflops=flops / (out["forward_ms"] * 1e-3) / 1e12)
+    return out
+
+
+def phase_resnet_train_timing(batch: int = TIMING_TRAIN_BATCH) -> dict:
+    """ResNet-34 `train_step` alone, bf16, batch 32, dropout 0.4, frozen
+    trunk: 4 windows of 10 steps, the median; then `profile_steps` over
+    the same state."""
+    from objectdetection_ssd_torch.config import OptimConfig
+    from objectdetection_ssd_torch.ops.priors import resnet34_priors
+    from objectdetection_ssd_torch.train.loop import train_step
+    from objectdetection_ssd_torch.train.state import create_train_state
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 15)
+    b = {k: v.to(dev) for k, v in
+         synthetic_batch(batch, gen, RESNET_SIZE).items()}
+    priors = torch.tensor(resnet34_priors(), device=dev)
+    state = create_train_state(resnet_config(compute_dtype="bfloat16"),
+                               OptimConfig(), device=dev,
+                               state_dict=seeded_resnet_state_dict())
+    for _ in range(2):
+        train_step(state, b, priors, seed=SEED)
+    torch.cuda.synchronize()
+    windows = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        for _ in range(10):
+            train_step(state, b, priors, seed=SEED)
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / 10)
+    mid = statistics.median(windows)
+    return {"images_per_s": batch / mid, "step_ms": mid * 1e3,
+            "windows_ms": [w * 1e3 for w in windows],
+            "profile": profile_steps({"resnet34": state}, b, priors)}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k1-baseline", type=Path, action="append",
@@ -1302,11 +1853,7 @@ def main(argv=None) -> int:
           + f" of max|dW| (tolerance {BF16_WGRAD_TOL:.0e})")
     prof = tt["profile"]
     for key, p in prof.items():
-        top = sorted(p["ops"].items(), key=lambda kv: -kv[1])[:10]
-        print(f"profile: {key} bf16 step ({PROFILE_STEPS} steps, "
-              f"torch.profiler): device ops {p['device_ms']:.3f} ms/step, "
-              f"host {p['wall_ms']:.3f} ms/step under the profiler; top 10: "
-              + "; ".join(f"{ms:.3f} ms {name[:90]}" for name, ms in top))
+        print_profile(key, p)
     if all(p["device_ms"] > 0 for p in prof.values()):
         names = set(prof["routed"]["ops"]) | set(prof["plain"]["ops"])
         diff = sorted(((prof["routed"]["ops"].get(n, 0.0)
@@ -1384,6 +1931,94 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t_phase:.1f} s")
     k1_launches = sl["launches"] + ev["launches"] + ts["detect_launches"]
 
+    # The ResNet-34 family, Soft-NMS, flip TTA, the loaders' CLI and remat.
+    t_phase = time.perf_counter()
+    rsd = seeded_resnet_state_dict()
+    rs = phase_resnet_slice(device, rsd)
+    print(f"resnet34 slice: detect_batch bf16 {RESNET_SIZE} px on "
+          f"{list(SERVE_BATCHES)}: valid {rs['valid']}, suppressed "
+          f"{rs['suppressed']}, K1 launches {rs['launches']}, kernel == "
+          f"plain-NMS detections; f32 card vs CPU loc/conf "
+          f"{rs['card_vs_cpu_rel']:.3e} of scale (non-trivial BN "
+          f"statistics); card == CPU detections (atol {SOFT_NMS_ATOL:.0e}) "
+          f"for " + ", ".join(
+              f"{k} (valid {v['valid']}, merged loc/conf "
+              f"{v['merged_rel']:.2e}, K1 {v['k1']})"
+              for k, v in rs["opt_in"].items()))
+    rt = phase_resnet_train(device)
+    print(f"resnet34 train: {TRAIN_STEPS} f32 train_steps batch "
+          f"{RESNET_TRAIN_BATCH} dropout 0, frozen trunk (bit-unchanged): "
+          f"losses {[round(x, 6) for x in rt['losses']]}; card vs CPU: "
+          f"losses {rt['loss_rel']:.3e} relative, changes of parameters "
+          f"and running statistics {rt['delta_norm_rel']:.3e} in norm and "
+          f"{rt['delta_rel']:.3e} of their largest ({rt['delta_worst']}), "
+          f"running statistics alone {rt['stats_rel']:.3e}; dropout 0.4: "
+          f"losses {rt['dropout_losses']} (runs a, b seed {SEED}; c seed "
+          f"{SEED + 1}), masks repeat from (seed, step)")
+    rtr = phase_resnet_trainer(device)
+    phases = "; ".join(
+        f"{label}: train phase {s['images_per_s']:.1f} images/s "
+        f"({s['steps']} steps, {s['seconds']:.3f} s), input wait "
+        f"{s['input_wait_ms_per_step']:.3f} ms/step"
+        for label, s in (("epoch 1, workers warm", rtr["warm"]),
+                         ("--resume epoch 2, workers starting",
+                          rtr["resumed"])))
+    print(f"resnet34 trainer: cli train --backbone resnet34 --bf16 batch "
+          f"{TIMING_TRAIN_BATCH}, {rtr['workers']} workers, fixture "
+          f"{rtr['train_images']} train + {rtr['val_images']} val at "
+          f"500x375 in packed caches ({smi}): {phases}; wall "
+          f"{rtr['train_s']:.2f} s for epochs 0-1, {rtr['resume_s']:.2f} s "
+          f"for the resumed run; train losses "
+          f"{[round(x, 4) for x in rtr['train_loss']]}; fresh Trainer "
+          f"resume bit-equal (BN statistics included), trunk unchanged; "
+          f"cli eval mAP {rtr['eval']['map']:.4f}, K1 launches "
+          f"{rtr['eval']['launches']} in {rtr['eval']['batches']} batches "
+          f"(K = 189); cli detect " + ", ".join(
+              f"{k}: {v['lines']} detections, K1 launches {v['launches']}"
+              for k, v in rtr["detect"].items()))
+    rm = phase_remat_step(device)
+    print(f"remat: one bf16 SSD300 step batch {TIMING_TRAIN_BATCH}, "
+          f"{list(ROUTED)} routed, cuDNN deterministic ({smi}): remat vs "
+          f"plain loss {rm['loss_rel']:.3e}, gradients {rm['grad_rel']:.3e} "
+          f"of max; peak memory above the state "
+          f"{rm['plain_peak_mb']:.1f} MiB plain, {rm['remat_peak_mb']:.1f} "
+          f"MiB remat; step {rm['plain_step_ms']:.2f} / "
+          f"{rm['remat_step_ms']:.2f} ms (one step each); K2 launches "
+          f"{rm['launches']}")
+    rtm = phase_resnet_timing(rsd)
+    print(f"resnet34 timing: bf16 channels_last batch {TIMING_BATCH} "
+          f"({smi}): {rtm['images_per_s']:.1f} images/s end to end "
+          f"({rtm['step_ms']:.3f} ms/step), forward {rtm['forward_ms']:.3f} "
+          f"ms ({rtm['gflop_per_image']:.2f} GFLOP/image of convs, "
+          f"{rtm['forward_tflops']:.1f} TFLOP/s), postprocess hard "
+          f"{rtm['postprocess_hard_ms']:.3f} ms, soft_gaussian "
+          f"{rtm['postprocess_soft_gaussian_ms']:.3f} ms, soft_linear "
+          f"{rtm['postprocess_soft_linear_ms']:.3f} ms; detect_batch "
+          f"{rtm['detect_ms']:.3f} ms, with flip TTA "
+          f"{rtm['detect_tta_ms']:.3f} ms")
+    for r in rtm["k1"]:
+        print(f"resnet34 timing: K1 at {r['shape']} ({smi}): device "
+              f"{r['k1']['device_ms'] * 1e3:.2f} us per launch "
+              f"(torch.profiler, {K1_CALLS} launches: {r['k1']['kernels']}), "
+              f"host {r['k1']['host_ms'] * 1e3:.2f} us per call, CUDA events "
+              f"{r['k1']['event_ms'] * 1e3:.2f} us per call; valid per set "
+              f"mean {r['valid_mean']:.2f} max {r['valid_max']}, suppressed "
+              f"{r['suppressed']}; bound {r['bound_ms'] * 1e3:.3f} us by "
+              f"{r['bound_by']} (valid pairs), all-pairs bound "
+              f"{r['all_pairs_bound_ms'] * 1e3:.3f} us; plain "
+              f"{r['plain_ms'] * 1e3:.1f} us")
+    rtt = phase_resnet_train_timing()
+    print(f"resnet34 train timing: train_step bf16 batch "
+          f"{TIMING_TRAIN_BATCH}, dropout 0.4, frozen trunk ({smi}), median "
+          f"of 4 windows of 10 steps: {rtt['images_per_s']:.1f} images/s "
+          f"({rtt['step_ms']:.3f} ms/step, windows "
+          f"{[round(w, 3) for w in rtt['windows_ms']]})")
+    for key, p in rtt["profile"].items():
+        print_profile(key, p)
+    print(f"resnet34 phases took {time.perf_counter() - t_phase:.1f} s")
+    k1_launches += (rs["launches"] + rtr["eval"]["launches"]
+                    + rtr["detect"]["hard"]["launches"])
+
     k2 = tt["k2"]
     k2_ops = sum(r["ops_ms"] for r in k2)
     k2_bytes = sum(r["bytes_ms"] for r in k2)
@@ -1395,7 +2030,8 @@ def main(argv=None) -> int:
         "source": "objectdetection_ssd_torch/csrc/nms.cu",
         "replaces": "objectdetection_ssd_tpu/infer/nms_pallas.py:139 "
                     "(git eb1d1b7)",
-        # Serving requests, cli eval's batches and the detect request.
+        # Serving requests, cli eval's batches and the detect requests of
+        # SSD300 and ResNet-34.
         "launches": k1_launches,
         "max_abs_err": worst,
         # The serving shape; every shape's numbers are in per_shape.
@@ -1407,19 +2043,22 @@ def main(argv=None) -> int:
         "bound_by": serve_k1["bound_by"],
         "library_ms": None,
         "per_shape": [{
-            "shape": r["shape"], "ms": r["k1"]["event_ms"],
+            "model": model, "shape": r["shape"], "ms": r["k1"]["event_ms"],
             "device_ms": r["k1"]["device_ms"], "host_ms": r["k1"]["host_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "all_pairs_bound_ms": r["all_pairs_bound_ms"],
             "valid_mean": r["valid_mean"], "valid_max": r["valid_max"],
-            "library_ms": None} for r in tm["k1"]],
+            "library_ms": None}
+            for model, rows in (("ssd300", tm["k1"]),
+                                ("resnet34", rtm["k1"])) for r in rows],
     }, {
         "name": "dw_conv3x3p1",
         "route": "cuda",
         "source": "objectdetection_ssd_torch/csrc/dw_conv3x3.cu",
         "replaces": "objectdetection_ssd_tpu/ops/dw_pallas.py:151",
-        "launches": tr["launches"],
+        # The routed train steps and the remat phase's two steps.
+        "launches": tr["launches"] + rm["launches"],
         "max_abs_err": dw_worst,
         # The four launches of one bf16 batch-32 train step, summed.
         "ms": sum(r["ms"] for r in k2),

@@ -7,10 +7,11 @@ Usage:
   python -m objectdetection_ssd_torch.cli eval --voc-root VOCdevkit
   python -m objectdetection_ssd_torch.cli detect img1.jpg img2.jpg
 
-Flags of features that are not ported yet (the mesh and pipeline
-strategies, remat, int8 and QAT, Soft-NMS and TTA, export, the
-``--init-*`` weight loaders, TensorBoard, profiling, ``--draw``,
-``doctor``) are not accepted.
+Both model families (``--backbone vgg16 | resnet34``), remat, Soft-NMS
+and flip TTA, and the ``--init-*`` weight loaders are ported.  Flags of
+features that are not ported yet (the mesh and pipeline strategies, int8
+and QAT, export, TensorBoard, profiling, ``--draw``, ``doctor``) are not
+accepted.
 
 This module imports no torch at import time: the Loader's spawn workers
 import the ``__main__`` module, which is this one under ``python -m``.
@@ -46,6 +47,19 @@ def _common_flags(p: argparse.ArgumentParser):
     p.add_argument("--synthetic", action="store_true",
                    help="generate a synthetic VOC fixture at --voc-root "
                         "(for smoke tests without the dataset)")
+    p.add_argument("--nms-method",
+                   choices=["hard", "soft_gaussian", "soft_linear"],
+                   default=None,
+                   help="NMS flavor (default hard = reference parity; "
+                        "soft_* decays overlapping candidates' scores "
+                        "instead of dropping them — Soft-NMS)")
+    p.add_argument("--soft-nms-sigma", type=float, default=None,
+                   help="gaussian decay width for --nms-method "
+                        "soft_gaussian (default 0.5)")
+    p.add_argument("--tta-flip", action="store_true",
+                   help="test-time augmentation: also run the horizontal "
+                        "mirror of each image and merge both views (costs "
+                        "a second forward)")
     p.add_argument("--ema-decay", type=float, default=None,
                    help="per-update EMA of the weights, e <- d*e + (1-d)*p "
                         "(0 = off); eval/detect read it with --use-ema")
@@ -75,6 +89,8 @@ def build_config(args) -> config_lib.Config:
         train_kw["device_prefetch"] = args.device_prefetch
     if getattr(args, "ema_decay", None) is not None:
         train_kw["ema_decay"] = args.ema_decay
+    if getattr(args, "remat", False):
+        train_kw["remat"] = True
     if train_kw:
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, **train_kw))
     if args.backbone is not None:
@@ -106,7 +122,48 @@ def build_config(args) -> config_lib.Config:
     if getattr(args, "hnm_topk", None) is not None:
         cfg = cfg.replace(loss=dataclasses.replace(
             cfg.loss, hnm_topk=args.hnm_topk))
+    pp_kw = {}
+    if getattr(args, "nms_method", None) is not None:
+        pp_kw["nms_method"] = args.nms_method
+    if getattr(args, "soft_nms_sigma", None) is not None:
+        pp_kw["soft_nms_sigma"] = args.soft_nms_sigma
+    if getattr(args, "tta_flip", False):
+        pp_kw["tta_flip"] = True
+    if pp_kw:
+        cfg = cfg.replace(postprocess=dataclasses.replace(
+            cfg.postprocess, **pp_kw))
     return cfg
+
+
+def _load_init_weights(args, cfg: config_lib.Config):
+    """The state_dict entries an ``--init-*`` flag names, converted to the
+    port's names (`models/convert.py`), or None.  The reference's recipe
+    starts from torchvision trunks (`Model.py:131-161` VGG-16,
+    `Model.py:21-30` ResNet-34) or from one of its own checkpoints
+    (`train_function.py:23-34`)."""
+    if not (args.init_torch_vgg16 or args.init_torch_resnet34
+            or args.init_reference_ckpt):
+        return None
+    import torch
+    from objectdetection_ssd_torch.models import convert
+
+    def _state_dict(path):
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+        return obj.state_dict() if hasattr(obj, "state_dict") else obj
+
+    if args.init_torch_vgg16:
+        if cfg.model.backbone != "vgg16":
+            raise SystemExit("--init-torch-vgg16 requires --backbone vgg16")
+        return convert.vgg16_trunk_params(_state_dict(args.init_torch_vgg16))
+    if args.init_torch_resnet34:
+        if cfg.model.backbone != "resnet34":
+            raise SystemExit(
+                "--init-torch-resnet34 requires --backbone resnet34")
+        return convert.resnet34_trunk_params(
+            _state_dict(args.init_torch_resnet34))
+    if cfg.model.backbone != "vgg16":
+        raise SystemExit("--init-reference-ckpt requires --backbone vgg16")
+    return convert.load_reference_checkpoint(args.init_reference_ckpt)
 
 
 def _eval_weights(state):
@@ -168,6 +225,7 @@ def cmd_train(args) -> int:
     if args.epochs is not None:
         cfg = cfg.replace(train=dataclasses.replace(
             cfg.train, num_epochs=args.epochs))
+    init_state_dict = _load_init_weights(args, cfg)
     train_recs, val_recs = _load_split(cfg, args)
     val_cache = (cfg.data.image_cache + ".val" if cfg.data.image_cache
                  else None)
@@ -202,7 +260,8 @@ def cmd_train(args) -> int:
                          train=False, drop_last=False, cache_path=val_cache)
     try:
         trainer = Trainer(cfg, train_loader, eval_loader,
-                          epoch_callback=epoch_callback, device=args.device)
+                          epoch_callback=epoch_callback, device=args.device,
+                          init_state_dict=init_state_dict)
         if args.resume:
             trainer.maybe_resume()
         trainer.fit()
@@ -299,6 +358,22 @@ def main(argv: Optional[List[str]] = None) -> int:
                          choices=range(0, 6),
                          help="freeze the first N VGG stages (1=conv1 .. "
                               "5=whole trunk)")
+    p_train.add_argument("--remat", action="store_true",
+                         help="gradient-checkpoint the VGG trunk at stage "
+                              "boundaries (recompute the stage interiors "
+                              "in the backward; less activation memory)")
+    p_train.add_argument("--init-torch-vgg16", default=None,
+                         help="initialize the VGG trunk from a torchvision "
+                              "vgg16 state_dict/.pth (the reference's "
+                              "pretrained-backbone recipe, Model.py:131-161)")
+    p_train.add_argument("--init-torch-resnet34", default=None,
+                         help="initialize the ResNet-34 trunk (params + BN "
+                              "stats) from a torchvision resnet34 "
+                              "state_dict/.pth")
+    p_train.add_argument("--init-reference-ckpt", default=None,
+                         help="initialize ALL SSD300 weights from a "
+                              "reference torch checkpoint "
+                              "(train_function.py:114-120 format)")
     p_train.set_defaults(fn=cmd_train)
 
     p_eval = sub.add_parser("eval", help="evaluate mAP on the val split")

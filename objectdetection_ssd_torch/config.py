@@ -7,7 +7,7 @@ keeps its own copy because it must not import the JAX package (whose
 (``scoped_vmem_limit_kib``, ``compilation_cache_dir``) or a JAX loop form
 (``nms_unrolled``, ``approx_recall_target``) are left out: they have no
 counterpart here.  Fields of features not ported yet are left out too:
-the mesh and pipeline stages (``mesh_shape``, ``pp_*``), ``remat``,
+the mesh and pipeline stages (``mesh_shape``, ``pp_*``),
 ``donate_state``, ``tensorboard_dir``, and the quantization and doctor
 configs.
 """
@@ -68,18 +68,24 @@ class PriorConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """SSD model selection.  Only ``backbone="vgg16"`` is ported so far;
-    ``"resnet34"`` raises in `models.ssd.build_model`."""
+    """SSD model family selection: ``"vgg16"`` (SSD300, 300 px, 8732
+    priors) or ``"resnet34"`` (`models.ssd.SSDResNet34`, 224 px, 189
+    priors)."""
 
     backbone: str = "vgg16"            # "vgg16" | "resnet34"
     image_size: int = 300              # square input (reference 300x300)
     num_classes: int = NUM_CLASSES_WITH_BG
     # conv4_3 L2-norm rescale initial value (reference `Model.py:133`).
     l2_norm_scale_init: float = 20.0
+    # ResNet-34 variant: freeze the trunk (reference `Model.py:81-86` runs
+    # it under torch.no_grad()): its BatchNorms keep their running
+    # statistics in train mode and its parameters get no update.
+    freeze_backbone: bool = True
     # VGG-16 variant: freeze the first N conv stages (1=conv1 .. 5=whole
     # trunk incl. fc6/fc7): a detach at the stage boundary, and the frozen
     # parameters get neither an update nor weight decay.
     freeze_stages: int = 0
+    dropout_rate: float = 0.4          # reference `Model.py:13`
     # Compute dtype of the conv stack ("float32" or "bfloat16").  Every conv
     # casts its weight and bias, and the L2Norm its scale, to the compute
     # dtype at use, as flax's ``dtype=`` does.  The serving model holds its
@@ -134,12 +140,14 @@ class PostprocessConfig:
     use_approx_top_k: bool = True
     # Anchors kept by the first stage (0 disables the prefilter).
     anchor_prefilter: int = 128
-    # "hard" = the reference's binary greedy suppression.  The soft-NMS
-    # methods ("soft_gaussian", "soft_linear") and flip TTA are not ported
-    # yet: `infer.postprocess` and `infer.detector` raise
-    # NotImplementedError for them.
+    # "hard" = the reference's binary greedy suppression (kernel K1 on the
+    # card); "soft_gaussian" / "soft_linear" = Soft-NMS (Bodla et al.
+    # 2017, `infer.postprocess.soft_nms_scores`): overlapping candidates
+    # keep a decayed score instead of being dropped.
     nms_method: str = "hard"
-    soft_nms_sigma: float = 0.5
+    soft_nms_sigma: float = 0.5        # gaussian decay width
+    # Flip TTA: also run the horizontal mirror of each image and merge the
+    # two views (`infer.detector.forward_for_postprocess`).
     tta_flip: bool = False
 
 
@@ -209,6 +217,11 @@ class TrainConfig:
     # batch to the card (pinned memory, a side stream), so the copy of
     # batch N+1 overlaps the step of batch N.  Same numbers either way.
     device_prefetch: bool = False
+    # Gradient-checkpoint the VGG trunk at its stage boundaries
+    # (`torch.utils.checkpoint`): only the pool outputs and the SSD taps are
+    # kept for the backward, the stage interiors are recomputed.  The
+    # ResNet-34 family accepts it and runs unchanged, as in JAX.
+    remat: bool = False
     # Exponential moving average of the weights, e <- d*e + (1-d)*p per
     # optimizer update; 0.0 = off (the reference has none).
     ema_decay: float = 0.0

@@ -1,9 +1,10 @@
 """User-facing detection API: images -> final boxes, on the card.
 
-The port of `objectdetection_ssd_tpu/infer/detector.py:Detector` without
-its mesh, int8 and TTA options.  The model forward and `postprocess` run on
-one device (``cuda`` unless the caller passes ``device="cpu"``); only the
-fixed-size detection tensors come back to the host, once per batch.
+The port of `objectdetection_ssd_tpu/infer/detector.py` (`Detector`,
+`mirror_permutation`, `forward_for_postprocess`) without its mesh and int8
+options.  The model forward and `postprocess` run on one device (``cuda``
+unless the caller passes ``device="cpu"``); only the fixed-size detection
+tensors come back to the host, once per batch.
 Weights come in as a ``state_dict`` (e.g. `models.convert.from_flax_params`)
 or from a `train.checkpoint.CheckpointManager` directory
 (`Detector.from_checkpoint`).
@@ -24,7 +25,61 @@ from objectdetection_ssd_torch.infer.postprocess import (Detections,
                                                          postprocess,
                                                          scale_detections)
 from objectdetection_ssd_torch.models.ssd import build_model
+from objectdetection_ssd_torch.ops import boxes as box_ops
 from objectdetection_ssd_torch.ops import priors as priors_lib
+
+
+def mirror_permutation(priors_np: np.ndarray) -> Optional[np.ndarray]:
+    """``perm[i]`` = index of the prior at the horizontally mirrored
+    position ``(1-cx, cy, w, h)``, or None when some prior has no exact
+    mirror partner.  Matched in integers (1e-5 quantization), so float
+    noise gives the union fallback instead of a wrong pair.  Where priors
+    repeat (`resnet34_priors` holds (0.5, 0.5, 1, 1) twice), the partner is
+    the last of them, as in the JAX function."""
+    k = np.rint(np.asarray(priors_np, np.float64) * 1e5).astype(np.int64)
+    index = {tuple(row): i for i, row in enumerate(k)}
+    perm = np.empty(len(k), np.int32)
+    for i, (cx, cy, w, h) in enumerate(k):
+        j = index.get((100000 - cx, cy, w, h))
+        if j is None:
+            return None
+        perm[i] = j
+    return perm
+
+
+def forward_for_postprocess(model: torch.nn.Module, images: torch.Tensor,
+                            priors: torch.Tensor,
+                            pp_config: PostprocessConfig,
+                            perm: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Model forward -> (loc, conf, priors) ready for `postprocess`.
+
+    With ``pp_config.tta_flip`` the horizontally mirrored images
+    (``images.flip(2)`` on NHWC) run too, and their decoded boxes are
+    mirrored back (cx -> 1 - cx).  With ``perm`` (`mirror_permutation` of
+    ``priors``, on their device) the views are averaged: each anchor's
+    mirrored prediction is realigned to its partner anchor and the boxes
+    and f32 logits are averaged.  Without it (an asymmetric grid) both
+    views' candidates are concatenated along the anchor axis for one NMS
+    pass.
+    """
+    loc, conf = model(images)
+    if not pp_config.tta_flip:
+        return loc, conf, priors
+    loc_f, conf_f = model(images.flip(2))
+    b = box_ops.decode(loc_f, priors)
+    b = torch.cat([1.0 - b[..., :1], b[..., 1:]], dim=-1)
+    if perm is not None:
+        b = b[:, perm]                          # realign to direct anchors
+        conf_f = conf_f[:, perm]
+        b_avg = (box_ops.decode(loc, priors) + b) * 0.5
+        loc = box_ops.encode(b_avg, priors)
+        conf = ((conf.float() + conf_f.float()) * 0.5).to(conf.dtype)
+        return loc, conf, priors
+    loc = torch.cat([loc, box_ops.encode(b, priors)], dim=1)
+    conf = torch.cat([conf, conf_f], dim=1)
+    return loc, conf, torch.cat([priors, priors], dim=0)
 
 
 def checkpoint_weights(config: Config, checkpoint_dir: Optional[str] = None,
@@ -58,7 +113,8 @@ def checkpoint_weights(config: Config, checkpoint_dir: Optional[str] = None,
 
 
 class Detector:
-    """SSD300 forward + postprocess on one device."""
+    """SSD forward (the registry model of ``config.model``) + postprocess
+    on one device."""
 
     @classmethod
     def from_checkpoint(cls, config: Config,
@@ -79,14 +135,19 @@ class Detector:
         self.device = resolve_device(device)
         self.config = config
         self.pp_config = postprocess_config or config.postprocess
-        if self.pp_config.tta_flip:
-            raise NotImplementedError("flip TTA is not ported to PyTorch yet")
         self.model = build_model(config.model, device=self.device)
         self.model.load_state_dict(state_dict, strict=True)
         if priors is None:
             priors = priors_lib.priors_for_model(config.model, config.priors)
         self.priors = torch.tensor(np.asarray(priors), dtype=torch.float32,
                                    device=self.device)
+        # Flip TTA's anchor pairing, found once (None: the union merge).
+        self.mirror_perm = None
+        if self.pp_config.tta_flip:
+            perm = mirror_permutation(np.asarray(priors))
+            if perm is not None:
+                self.mirror_perm = torch.from_numpy(perm).long().to(
+                    self.device)
 
     @torch.inference_mode()
     def forward(self, images) -> tuple:
@@ -97,9 +158,13 @@ class Detector:
     @torch.inference_mode()
     def detect_batch(self, images) -> Detections:
         """(B, S, S, 3) uint8 or normalized float NHWC -> Detections
-        (normalized boxes), on this detector's device."""
-        loc, conf = self.forward(images)
-        return postprocess(loc, conf, self.priors, self.pp_config)
+        (normalized boxes), on this detector's device; with flip TTA when
+        the postprocess config asks for it."""
+        images = torch.as_tensor(images).to(self.device, non_blocking=True)
+        loc, conf, priors = forward_for_postprocess(
+            self.model, images, self.priors, self.pp_config,
+            self.mirror_perm)
+        return postprocess(loc, conf, priors, self.pp_config)
 
     def detect_images(self, paths: Sequence[str],
                       batch_size: int = 8) -> List[Dict[str, np.ndarray]]:

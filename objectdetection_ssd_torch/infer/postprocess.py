@@ -11,7 +11,9 @@ none).  Ties are certain in the final top-200, where every suppressed or
 invalid slot scores 0.0; the boxes of invalid rows are unspecified.
 
 The greedy suppression runs the CUDA kernel on the card and the plain
-recurrence on the CPU (`infer/nms_cuda.py:greedy_nms_keep`).
+recurrence on the CPU (`infer/nms_cuda.py:greedy_nms_keep`).  Soft-NMS
+(`soft_nms_scores`), which the JAX package leaves to XLA, is plain PyTorch
+on both: K data-independent rounds over the batched candidate sets.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from objectdetection_ssd_torch.infer.nms_cuda import (greedy_nms_keep,
                                                       greedy_nms_mask)
 from objectdetection_ssd_torch.ops import boxes as box_ops
 
-__all__ = ["Detections", "greedy_nms_mask", "postprocess",
+__all__ = ["Detections", "greedy_nms_mask", "soft_nms_scores", "postprocess",
            "select_candidates", "finalize", "scale_detections"]
 
 
@@ -97,6 +99,49 @@ def select_candidates(pred_offsets: torch.Tensor, pred_logits: torch.Tensor,
     return cand_boxes, top_scores, valid
 
 
+def soft_nms_scores(iou: torch.Tensor, scores: torch.Tensor,
+                    valid: torch.Tensor, method: str = "soft_gaussian",
+                    sigma: float = 0.5, iou_threshold: float = 0.45
+                    ) -> torch.Tensor:
+    """Soft-NMS (Bodla et al. 2017), fixed-shape and batched — the JAX
+    `soft_nms_scores` in its unrolled form.
+
+    ``iou`` (..., K, K), ``scores`` / ``valid`` (..., K) in descending
+    candidate order.  K rounds, each: pick the alive candidate of the
+    highest current (decayed) score, the first one on ties, as
+    ``jnp.argmax``; record that score; decay the alive rest by
+    ``exp(-iou^2 / sigma)`` ("soft_gaussian") or by ``1 - iou`` where
+    ``iou >= iou_threshold`` ("soft_linear").  A round with nothing
+    positive left is a no-op.  Returns each candidate's score at the
+    moment it was picked (0 for never picked or invalid).
+    """
+    if method not in ("soft_gaussian", "soft_linear"):
+        raise ValueError(f"unknown soft-NMS method {method!r}")
+    k = scores.shape[-1]
+    index = torch.arange(k, device=scores.device)
+    work = torch.where(valid, scores, 0.0)
+    alive = valid.clone()
+    out = torch.zeros_like(scores)
+    for _ in range(k):
+        masked = torch.where(alive, work, -1.0)
+        best = masked.amax(dim=-1)                             # (...,)
+        # First index of the maximum: torch.argmax names no tie rule.
+        i = torch.where(masked == best[..., None], index, k).amin(dim=-1)
+        has = best > 0.0                                       # anything left?
+        pick = (index == i[..., None]) & has[..., None]
+        out = torch.where(pick, work, out)
+        alive = alive & ~pick
+        row = torch.gather(iou, -2, i[..., None, None].expand(
+            *i.shape, 1, k))[..., 0, :]                        # (..., K)
+        if method == "soft_gaussian":
+            decay = torch.exp(-(row * row) / sigma)
+        else:
+            decay = torch.where(row >= iou_threshold, 1.0 - row, 1.0)
+        decay = torch.where(has[..., None], decay, 1.0)        # no-op rounds
+        work = torch.where(alive, work * decay, work)
+    return out
+
+
 def finalize(cand_boxes: torch.Tensor, top_scores: torch.Tensor,
              keep: torch.Tensor, top_k: int) -> Detections:
     """Kept per-class candidates -> the global top-k `Detections`."""
@@ -118,14 +163,20 @@ def postprocess(pred_offsets: torch.Tensor, pred_logits: torch.Tensor,
                 config: PostprocessConfig = PostprocessConfig()
                 ) -> Detections:
     """Batched post-processing: (B, P, 4), (B, P, C) -> Detections, on the
-    device of the inputs.  Hard NMS only; soft-NMS is not ported yet."""
-    if config.nms_method != "hard":
-        raise NotImplementedError(
-            f"nms_method={config.nms_method!r} is not ported to PyTorch yet")
+    device of the inputs.  ``config.nms_method`` "hard" keeps by greedy NMS
+    (kernel K1 on the card); the soft methods keep every candidate whose
+    decayed score still clears ``score_threshold``, at that score."""
     cand_boxes, top_scores, valid = select_candidates(
         pred_offsets, pred_logits, priors_cxcywh, config)
-    keep = greedy_nms_keep(cand_boxes, valid, config.nms_iou_threshold)
-    return finalize(cand_boxes, top_scores, keep, config.top_k)
+    if config.nms_method == "hard":
+        keep = greedy_nms_keep(cand_boxes, valid, config.nms_iou_threshold)
+        return finalize(cand_boxes, top_scores, keep, config.top_k)
+    decayed = soft_nms_scores(box_ops.pairwise_iou(cand_boxes, cand_boxes),
+                              top_scores, valid, method=config.nms_method,
+                              sigma=config.soft_nms_sigma,
+                              iou_threshold=config.nms_iou_threshold)
+    return finalize(cand_boxes, decayed, decayed >= config.score_threshold,
+                    config.top_k)
 
 
 def scale_detections(dets: Detections, image_sizes_wh: torch.Tensor

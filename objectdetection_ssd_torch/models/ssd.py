@@ -1,8 +1,10 @@
-"""SSD300 (VGG-16) — the port of `objectdetection_ssd_tpu/models/ssd.py`.
+"""SSD300 (VGG-16) and the ResNet-34 variant — the port of
+`objectdetection_ssd_tpu/models/ssd.py`.
 
-Input NHWC (B, 300, 300, 3), uint8 or already-normalized float, like the JAX
-model; output ``(loc (B, 8732, 4), conf (B, 8732, 21))`` in the compute
-dtype.  Inside, the network runs NCHW: the NHWC input permuted to NCHW is a
+Input NHWC (B, S, S, 3), uint8 or already-normalized float, like the JAX
+models; output ``(loc (B, P, 4), conf (B, P, 21))`` in the compute dtype:
+S = 300 and P = 8732 for SSD300, S = 224 and P = 189 for `SSDResNet34`.
+Inside, the network runs NCHW: the NHWC input permuted to NCHW is a
 ``channels_last`` tensor, which is the memory format cuDNN prefers on the
 card.
 
@@ -13,6 +15,15 @@ learnable rescale init 20) and fc7; extra pyramid seq8 (1x1 -> 256, 3x3/s2/p1
 with k = [4, 6, 6, 6, 4, 4] anchors per cell, flattened (row, col,
 anchor)-major and concatenated in tap order -> 8732 rows aligned with
 `ops.priors.ssd300_priors`.
+
+ResNet-34 variant (reference `Model.py:12-126`, JAX `ssd.py:139-223`): the
+trunk (frozen by default: no gradient, BN on its running statistics even in
+train mode), element dropout on its ReLU'd 7x7 output, 3x3 neck blocks
+Conv -> ReLU -> BN -> channel dropout (the stride-2 ``neck_down`` applied
+twice with the same weights, 7 -> 4 -> 2, then ``neck_down2`` 2 -> 1), and
+at the 4x4, 2x2, 1x1 taps a loc head Conv -> BN -> channel dropout and a
+conf conv with bias -2; k = 9 anchors per cell -> 189 rows aligned with
+`ops.priors.resnet34_priors`.
 """
 
 from __future__ import annotations
@@ -27,8 +38,10 @@ from objectdetection_ssd_torch.config import (IMAGENET_MEAN, IMAGENET_STD,
                                               ModelConfig,
                                               NUM_CLASSES_WITH_BG)
 from objectdetection_ssd_torch.device import DeviceLike, resolve_device
-from objectdetection_ssd_torch.models.backbones import VGG16Trunk
-from objectdetection_ssd_torch.models.layers import (L2Norm, TorchConv,
+from objectdetection_ssd_torch.models.backbones import (ResNet34Trunk,
+                                                        VGG16Trunk)
+from objectdetection_ssd_torch.models.layers import (BatchNorm, Dropout,
+                                                     L2Norm, TorchConv,
                                                      flatten_head)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -106,10 +119,15 @@ class SSD300(nn.Module):
                 m.reset_parameters(generator)
         self.l2norm_4_3.reset_parameters()
 
-    def forward(self, images: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, images: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``generator`` is accepted for the registry's one forward
+        signature; SSD300 has no dropout.  ``remat``: recompute the trunk's
+        stage interiors in the backward (`VGG16Trunk.forward`)."""
+        del generator
         x = prepare_input(images, self.dtype)
-        conv4_3, x = self.trunk(x)
+        conv4_3, x = self.trunk(x, remat=remat)
         return ssd300_post_trunk(self, conv4_3, x)
 
 
@@ -130,31 +148,151 @@ def ssd300_post_trunk(model: SSD300, conv4_3: torch.Tensor, x: torch.Tensor
     return torch.cat(locs, dim=1), torch.cat(confs, dim=1)
 
 
+# The ResNet-34 variant's head taps, in head order, and its anchors per
+# cell (the JAX model's default k = 9, which pairs with the 189 priors).
+_RESNET_TAPS = ("t4", "t2", "t1")
+_RESNET_ANCHORS = 9
+
+
+class _NeckBlock(nn.Module):
+    """Conv -> ReLU -> BN -> channel dropout (reference `Model.py:56-62`)."""
+
+    def __init__(self, in_features: int, features: int, stride: int,
+                 dropout_rate: float):
+        super().__init__()
+        self.conv = TorchConv(in_features, features, kernel=3, stride=stride,
+                              padding=1)
+        self.bn = BatchNorm(features)
+        self.drop = Dropout(dropout_rate, channelwise=True)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        return self.drop(self.bn(F.relu(self.conv(x))), generator)
+
+
+class _LocHead(nn.Module):
+    """Conv -> BN -> channel dropout, no ReLU (reference `conv2d_final`,
+    `Model.py:64-70`)."""
+
+    def __init__(self, in_features: int, out: int, dropout_rate: float):
+        super().__init__()
+        self.conv = TorchConv(in_features, out, kernel=3, padding=1)
+        self.bn = BatchNorm(out)
+        self.drop = Dropout(dropout_rate, channelwise=True)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        return self.drop(self.bn(self.conv(x)), generator)
+
+
+class SSDResNet34(nn.Module):
+    """ResNet-34 SSD.  (B, 224, 224, 3) -> ((B, 189, 4), (B, 189, C)), the
+    rows of `ops.priors.resnet34_priors`.
+
+    ``freeze_backbone``: the trunk runs under ``torch.no_grad()`` (JAX's
+    ``stop_gradient``) and stays in eval mode under ``model.train()``, so
+    its BNs use and keep their running statistics.  In train mode with
+    ``dropout_rate > 0`` the forward needs ``generator`` (on the model's
+    device) for the dropout masks.
+    """
+
+    def __init__(self, num_classes: int = NUM_CLASSES_WITH_BG,
+                 dropout_rate: float = 0.4, freeze_backbone: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_classes = num_classes
+        self.freeze_backbone = freeze_backbone
+        self.dtype = dtype
+        self.trunk = ResNet34Trunk()
+        self.trunk_drop = Dropout(dropout_rate)
+        self.neck0 = _NeckBlock(512, 256, 1, dropout_rate)       # 7x7
+        # The reference applies its stride-2 neck conv twice with the same
+        # weights (`Model.py:91-96`): one module, called twice.
+        self.neck_down = _NeckBlock(256, 256, 2, dropout_rate)   # 4x4, 2x2
+        self.neck_down2 = _NeckBlock(256, 256, 2, dropout_rate)  # 1x1
+        k = _RESNET_ANCHORS
+        for tap in _RESNET_TAPS:
+            self.add_module(f"loc_{tap}", _LocHead(256, 4 * k, dropout_rate))
+            self.add_module(f"conf_{tap}", TorchConv(
+                256, num_classes * k, kernel=3, padding=1,
+                bias_init=-2.0))                                 # Model.py:39
+        self.reset_parameters(generator)
+
+    def reset_parameters(self,
+                         generator: Optional[torch.Generator] = None) -> None:
+        """Flax init from ``generator``, in module order: lecun-normal
+        kernels, BN scale 1, bias 0, mean 0, var 1."""
+        for m in self.modules():
+            if isinstance(m, TorchConv):
+                m.reset_parameters(generator)
+            elif isinstance(m, BatchNorm):
+                m.reset_parameters()
+
+    def train(self, mode: bool = True) -> "SSDResNet34":
+        super().train(mode)
+        if self.freeze_backbone:
+            self.trunk.train(False)
+        return self
+
+    def forward(self, images: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``remat`` is accepted and changes nothing: the remat markers are
+        the VGG trunk's, as in the JAX package."""
+        del remat
+        x = prepare_input(images, self.dtype)
+        if self.freeze_backbone:
+            with torch.no_grad():
+                feats = self.trunk(x)                           # (B, 512, 7, 7)
+        else:
+            feats = self.trunk(x)
+        feats = self.trunk_drop(F.relu(feats), generator)
+        x = self.neck0(feats, generator)
+        x4 = self.neck_down(x, generator)
+        x2 = self.neck_down(x4, generator)
+        x1 = self.neck_down2(x2, generator)
+        locs, confs = [], []
+        for tap, t in zip(_RESNET_TAPS, (x4, x2, x1)):
+            locs.append(flatten_head(getattr(self, f"loc_{tap}")(t, generator),
+                                     4))
+            confs.append(flatten_head(getattr(self, f"conf_{tap}")(t),
+                                      self.num_classes))
+        return torch.cat(locs, dim=1), torch.cat(confs, dim=1)
+
+
 def build_model(config: ModelConfig, device: DeviceLike = None,
                 generator: Optional[torch.Generator] = None,
-                train: bool = False) -> SSD300:
+                train: bool = False) -> nn.Module:
     """Model registry keyed on ``config.backbone``: the model on ``device``
     (default ``cuda``), ``channels_last``, computing in the compute dtype,
     with weights drawn from ``generator``.
 
     For serving (``train=False``) the model is in eval mode and holds its
-    parameters in the compute dtype.  For training it is in train mode and
-    holds them in f32; each layer casts them to the compute dtype at use.
+    conv and L2Norm parameters in the compute dtype.  For training it is in
+    train mode and holds them in f32; each layer casts them to the compute
+    dtype at use.  BatchNorm parameters and statistics stay f32 in both.
     """
     dev = resolve_device(device)
-    if config.backbone == "resnet34":
-        raise NotImplementedError(
-            "the ResNet-34 family is not ported to PyTorch yet")
-    if config.backbone != "vgg16":
-        raise ValueError(f"unknown backbone: {config.backbone!r}")
     if config.compute_dtype not in _DTYPES:
         raise ValueError(f"unsupported compute dtype {config.compute_dtype!r}")
     dtype = _DTYPES[config.compute_dtype]
-    model = SSD300(num_classes=config.num_classes,
-                   l2_norm_scale_init=config.l2_norm_scale_init,
-                   generator=generator, dtype=dtype,
-                   freeze_stages=config.freeze_stages,
-                   dw_pallas_convs=config.dw_pallas_convs)
+    if config.backbone == "vgg16":
+        model = SSD300(num_classes=config.num_classes,
+                       l2_norm_scale_init=config.l2_norm_scale_init,
+                       generator=generator, dtype=dtype,
+                       freeze_stages=config.freeze_stages,
+                       dw_pallas_convs=config.dw_pallas_convs)
+    elif config.backbone == "resnet34":
+        model = SSDResNet34(num_classes=config.num_classes,
+                            dropout_rate=config.dropout_rate,
+                            freeze_backbone=config.freeze_backbone,
+                            generator=generator, dtype=dtype)
+    else:
+        raise ValueError(f"unknown backbone: {config.backbone!r}")
     model = model.to(device=dev, dtype=torch.float32 if train else dtype,
                      memory_format=torch.channels_last)
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.float()
     return model.train(train)

@@ -10,9 +10,11 @@ an optax chain (wd -> momentum -> bias scaling -> schedule):
   * StepLR(step_size=7 epochs, gamma=0.1) on the update clock, and a
     linear warmup ``(count + 1) / warmup_steps``: one `LambdaLR`, stepped
     once per update;
-  * frozen parameters (`models/backbones.py:vgg_frozen_prefixes`) are set
-    ``requires_grad=False`` and left out of the optimizer, so they get
-    neither an update nor weight decay (the chain's `_zero_frozen`).
+  * frozen parameters (`frozen_prefixes`: the VGG stages of
+    ``freeze_stages``, or the whole ResNet-34 trunk with
+    ``freeze_backbone``) are set ``requires_grad=False`` and left out of
+    the optimizer, so they get neither an update nor weight decay (the
+    chain's `_zero_frozen`).
 
 Gradient accumulation (`OptimConfig.grad_accum_steps` = k, JAX
 `optax.MultiSteps`): each micro-step folds its gradients into a running
@@ -22,7 +24,8 @@ schedule counts real updates.  In between, parameters do not move.
 
 EMA (`TrainConfig.ema_decay` = d, JAX `train/loop.py:_apply_update`): seeded
 with a copy of the initial weights, ``e <- d * e + (1 - d) * p`` after each
-real update only.
+real update only.  It covers parameters only, as JAX's ``ema_params`` holds
+no ``batch_stats``: BN running statistics are served live.
 """
 
 from __future__ import annotations
@@ -154,6 +157,15 @@ def make_optimizer(named_params: Iterable[Tuple[str, nn.Parameter]],
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
 
 
+def frozen_prefixes(model_config: ModelConfig) -> Tuple[str, ...]:
+    """Dotted parameter-name prefixes the optimizer freezes: ``trunk`` for
+    the ResNet-34 family with ``freeze_backbone``, else the VGG stages of
+    ``freeze_stages`` (JAX `create_train_state`)."""
+    if model_config.backbone == "resnet34":
+        return ("trunk",) if model_config.freeze_backbone else ()
+    return vgg_frozen_prefixes(model_config.freeze_stages)
+
+
 def create_train_state(model_config: ModelConfig, optim_config: OptimConfig,
                        device: DeviceLike = None,
                        generator: Optional[torch.Generator] = None,
@@ -163,11 +175,12 @@ def create_train_state(model_config: ModelConfig, optim_config: OptimConfig,
                        ema: bool = False) -> TrainState:
     """Build the train model (`build_model(train=True)`: f32 parameters on
     ``device``, default ``cuda``), its weights drawn from ``generator`` or
-    loaded from ``state_dict`` (strictly), and its optimizer, with the VGG
-    stages of ``model_config.freeze_stages`` frozen.
+    loaded from ``state_dict`` (strictly), and its optimizer, with the
+    parameters under `frozen_prefixes` frozen.
 
     ``model``: use this module (already on its device) instead of the
-    registry's.  ``ema``: seed `TrainState.ema` with a copy of the initial
+    registry's; `train/loop.py` calls it as ``model(images, generator,
+    remat)``, as it calls the registry's models.  ``ema``: seed `TrainState.ema` with a copy of the initial
     weights.
     """
     if model is None:
@@ -177,7 +190,7 @@ def create_train_state(model_config: ModelConfig, optim_config: OptimConfig,
         model.load_state_dict(state_dict, strict=True)
     optimizer, scheduler = make_optimizer(
         model.named_parameters(), optim_config, steps_per_epoch,
-        vgg_frozen_prefixes(model_config.freeze_stages))
+        frozen_prefixes(model_config))
     ema_weights = ({n: p.detach().clone()
                     for n, p in model.named_parameters()} if ema else None)
     return TrainState(model, optimizer, scheduler,

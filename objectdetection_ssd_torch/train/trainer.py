@@ -22,7 +22,7 @@ way.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -31,6 +31,7 @@ from torch import nn
 from objectdetection_ssd_torch.config import Config
 from objectdetection_ssd_torch.data.pipeline import Loader, prefetch
 from objectdetection_ssd_torch.device import DeviceLike, resolve_device
+from objectdetection_ssd_torch.models.convert import merge_state_dict
 from objectdetection_ssd_torch.ops import priors as priors_lib
 from objectdetection_ssd_torch.train import loop as loop_lib
 from objectdetection_ssd_torch.train.checkpoint import CheckpointManager
@@ -46,10 +47,17 @@ class Trainer:
                  epoch_callback: Optional[Callable[[int, "Trainer"], None]]
                  = None,
                  model: Optional[nn.Module] = None, priors=None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 init_state_dict: Optional[Mapping[str, torch.Tensor]]
+                 = None):
         """``model`` / ``priors``: override the registry model and its
         prior set (tests, custom architectures).  ``device`` defaults to
-        ``cuda``; the weights are drawn from ``config.train.seed``."""
+        ``cuda``; the weights are drawn from ``config.train.seed``.
+
+        ``init_state_dict``: converted weights and BN statistics (the
+        ``--init-*`` loaders, `models/convert.py`) laid over the random
+        init by `merge_state_dict`; the EMA, when on, then starts from the
+        merged weights, not the random ones."""
         setup_logging()
         self.config = config
         self.device = resolve_device(device)
@@ -65,6 +73,13 @@ class Trainer:
             steps_per_epoch=steps_per_epoch,
             model=model.to(self.device) if model is not None else None,
             ema=config.train.ema_decay > 0)
+        if init_state_dict is not None:
+            net = self.state.model
+            net.load_state_dict(merge_state_dict(net.state_dict(),
+                                                 init_state_dict))
+            if self.state.ema is not None:
+                self.state.ema = {n: p.detach().clone()
+                                  for n, p in net.named_parameters()}
         if priors is None:
             priors = priors_lib.priors_for_model(config.model, config.priors)
         self.priors = torch.tensor(np.asarray(priors), dtype=torch.float32,
@@ -145,7 +160,8 @@ class Trainer:
             if train:
                 self.state, metrics = loop_lib.train_step(
                     self.state, batch, self.priors, cfg.loss,
-                    ema_decay=cfg.train.ema_decay)
+                    ema_decay=cfg.train.ema_decay, seed=cfg.train.seed,
+                    remat=cfg.train.remat)
             else:
                 metrics = loop_lib.eval_step(self.state, batch, self.priors,
                                              cfg.loss)

@@ -121,21 +121,23 @@ def test_no_silent_cpu_fallback_without_cuda(monkeypatch):
 
 
 def test_unported_options_raise():
-    from objectdetection_ssd_torch.config import (Config, ModelConfig,
-                                                  PostprocessConfig)
-    from objectdetection_ssd_torch.infer.detector import Detector
-    from objectdetection_ssd_torch.infer.postprocess import postprocess
-    from objectdetection_ssd_torch.models.ssd import build_model
-    from objectdetection_ssd_torch.ops.priors import priors_for_model
+    """What is still unported is refused, not silently ignored: int8 and
+    QAT, export and the mesh strategies have no flag, no config and no
+    module in the port."""
+    import importlib
+    import dataclasses
+    from objectdetection_ssd_torch import cli, config
 
-    with pytest.raises(NotImplementedError):
-        build_model(ModelConfig(backbone="resnet34"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        priors_for_model(ModelConfig(backbone="resnet34"))
-    with pytest.raises(NotImplementedError):
-        postprocess(torch.zeros(1, 4, 4), torch.zeros(1, 4, 21),
-                    torch.zeros(4, 4),
-                    PostprocessConfig(nms_method="soft_gaussian"))
-    with pytest.raises(NotImplementedError):
-        Detector(Config(), {}, PostprocessConfig(tta_flip=True),
-                 device="cpu")
+    for argv in (["eval", "--int8"], ["train", "--qat"],
+                 ["export", "--out-dir", "x"], ["train", "--fsdp", "2"],
+                 ["train", "--pp", "2"]):
+        with pytest.raises(SystemExit):
+            cli.main(argv)
+    assert not hasattr(config.Config(), "quant")
+    assert "mesh_shape" not in {f.name for f in dataclasses.fields(
+        config.TrainConfig)}
+    for module in ("objectdetection_ssd_torch.infer.quant",
+                   "objectdetection_ssd_torch.infer.export",
+                   "objectdetection_ssd_torch.parallel"):
+        with pytest.raises(ModuleNotFoundError):
+            importlib.import_module(module)

@@ -201,3 +201,81 @@ def test_score_exactly_at_threshold_is_valid():
                             torch.from_numpy(priors), tcfg)
     assert_same_detections(got, want)
     assert (got.scores[got.valid] >= thr).all()
+
+
+# ---------------------------------------------------------------- Soft-NMS
+
+
+def _soft_nms_inputs(seed, b=3, k=48):
+    """Clustered xyxy candidates with scores sorted descending, ~20%
+    invalid, and runs of exactly equal scores (argmax ties)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(0.2, 0.8, (b, 20, 4, 2))
+    pick = rng.integers(0, 4, (b, 20, k))
+    cxy = np.take_along_axis(centers, pick[..., None], axis=2)
+    cxy = cxy + rng.normal(0, 0.04, cxy.shape)
+    wh = rng.uniform(0.1, 0.3, (b, 20, k, 2))
+    boxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(
+        np.float32)
+    scores = -np.sort(-rng.uniform(0.0, 1.0, (b, 20, k)), axis=-1)
+    scores = np.round(scores * 16) / 16                  # many exact ties
+    valid = rng.uniform(size=(b, 20, k)) >= 0.2
+    return boxes, scores.astype(np.float32), valid
+
+
+@pytest.mark.parametrize("method,sigma", [
+    ("soft_gaussian", 0.5), ("soft_gaussian", 0.3), ("soft_linear", 0.5),
+    ("soft_linear", 0.3)])
+def test_soft_nms_scores_match_jax(method, sigma):
+    boxes, scores, valid = _soft_nms_inputs(seed=int(sigma * 10))
+    iou = tpost.box_ops.pairwise_iou(torch.from_numpy(boxes),
+                                     torch.from_numpy(boxes))
+    want = jpost.soft_nms_scores(jnp.asarray(iou.numpy()),
+                                 jnp.asarray(scores), jnp.asarray(valid),
+                                 method=method, sigma=sigma)
+    got = tpost.soft_nms_scores(iou, torch.from_numpy(scores),
+                                torch.from_numpy(valid), method=method,
+                                sigma=sigma)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+    # Ties decided, something decayed, invalid candidates never picked.
+    assert (np.diff(scores, axis=-1) == 0).sum() > 100
+    assert (got.numpy()[valid] < scores[valid]).sum() > 100
+    assert not got.numpy()[~valid].any()
+
+
+def test_soft_nms_first_index_on_ties():
+    """Two identical boxes of equal score: the first is picked at full
+    score and the second decays; an unknown method raises."""
+    iou = torch.tensor([[[1.0, 1.0, 0.0], [1.0, 1.0, 0.0], [0.0, 0.0, 1.0]]])
+    scores = torch.tensor([[0.9, 0.9, 0.5]])
+    valid = torch.ones(1, 3, dtype=torch.bool)
+    got = tpost.soft_nms_scores(iou, scores, valid, "soft_linear")
+    assert got.tolist() == [[pytest.approx(0.9), 0.0, pytest.approx(0.5)]]
+    got = tpost.soft_nms_scores(iou, scores, valid, "soft_gaussian", 0.5)
+    np.testing.assert_allclose(got.numpy(),
+                               [[0.9, 0.9 * np.exp(-2.0), 0.5]], rtol=1e-6)
+    with pytest.raises(ValueError, match="soft-NMS"):
+        tpost.soft_nms_scores(iou, scores, valid, "soft_cubic")
+
+
+@pytest.mark.parametrize("name", ["two_stage", "exact_eval"])
+@pytest.mark.parametrize("method", ["soft_gaussian", "soft_linear"])
+def test_soft_postprocess_matches_jax(name, method):
+    jcfg, tcfg = _configs()[name]
+    jcfg = dataclasses.replace(jcfg, nms_method=method, soft_nms_sigma=0.3)
+    tcfg = dataclasses.replace(tcfg, nms_method=method, soft_nms_sigma=0.3)
+    offsets, logits = _predictions(seed=11, b=1)
+    priors = ssd300_priors()
+    want = jpost.postprocess(jnp.asarray(offsets), jnp.asarray(logits),
+                             jnp.asarray(priors), jcfg)
+    got = tpost.postprocess(torch.from_numpy(offsets),
+                            torch.from_numpy(logits),
+                            torch.from_numpy(priors), tcfg)
+    assert_same_detections(got, want)
+    hard = tpost.postprocess(torch.from_numpy(offsets),
+                             torch.from_numpy(logits),
+                             torch.from_numpy(priors),
+                             dataclasses.replace(tcfg, nms_method="hard"))
+    # Soft-NMS keeps decayed overlaps that hard NMS drops.
+    assert got.valid.sum() > hard.valid.sum()

@@ -96,7 +96,8 @@ def test_config_fields_match_jax():
     jtrain, ttrain = fields(jconfig.TrainConfig), fields(tconfig.TrainConfig)
     assert ttrain == {name: jtrain[name] for name in ttrain}
     jm, tm = fields(jconfig.ModelConfig), fields(tconfig.ModelConfig)
-    for name in ("freeze_stages", "dw_pallas_convs", "compute_dtype"):
+    for name in ("freeze_stages", "dw_pallas_convs", "compute_dtype",
+                 "freeze_backbone", "dropout_rate"):
         assert tm[name] == jm[name]
 
 
@@ -485,6 +486,45 @@ def test_full_width_step_updates_like_sgd(full_width_step):
         assert torch.equal(p.detach(), after[name]), name
 
 
+@pytest.mark.parametrize("routed", [False, True], ids=["cudnn", "k2"])
+def test_remat_step_equals_plain_step(full_width_step, routed):
+    """``remat=True`` with freeze_stages=2, routed through K2 (its plain
+    version here) and not: the same loss to 1e-6 and the same gradients to
+    1e-6 of their largest; the checkpointed stages 3-5 run their forward
+    twice (the recompute), the frozen stages 1-2 once."""
+    _, _, _, _, before, batch, priors = full_width_step
+    cfg = tconfig.ModelConfig(freeze_stages=2,
+                              dw_pallas_convs=ROUTED + ("conv3_1",)
+                              if routed else ())
+    runs = {}
+    for remat in (False, True):
+        state = tstate.create_train_state(
+            cfg, tconfig.OptimConfig(use_lr_schedule=False), device="cpu",
+            state_dict=before)
+        calls = {"conv1_1": 0, "conv3_1": 0}
+        for name in calls:
+            state.model.trunk.get_submodule(name).register_forward_hook(
+                lambda *_, name=name: calls.__setitem__(name,
+                                                        calls[name] + 1))
+        state, metrics = tloop.train_step(state, batch, _t(priors),
+                                          remat=remat)
+        runs[remat] = (metrics, state, calls)
+    (m0, s0, c0), (m1, s1, c1) = runs[False], runs[True]
+    assert c0 == {"conv1_1": 1, "conv3_1": 1}
+    assert c1 == {"conv1_1": 1, "conv3_1": 2}
+    np.testing.assert_allclose(float(m1["loss"]), float(m0["loss"]),
+                               rtol=1e-6)
+    plain = dict(s0.model.named_parameters())
+    for name, p in s1.model.named_parameters():
+        if name.split(".")[1] in {"conv1_1", "conv1_2", "conv2_1",
+                                  "conv2_2"}:
+            assert p.grad is None and plain[name].grad is None, name
+            continue
+        want = plain[name].grad
+        torch.testing.assert_close(p.grad, want, rtol=0,
+                                   atol=1e-6 * float(want.abs().max()))
+
+
 # ---------------------------------------------------------------- small model
 
 
@@ -511,7 +551,7 @@ class TTiny(torch.nn.Module):
         self.loc = TorchConv(8, 4, kernel=3, padding=1, dw_pallas=True)
         self.conf = TorchConv(8, 21, kernel=3, padding=1, dw_pallas=True)
 
-    def forward(self, x):                                 # NHWC
+    def forward(self, x, generator=None, remat=False):    # NHWC
         x = F.relu(self.stem(x.permute(0, 3, 1, 2)))
         return flatten_head(self.loc(x), 4), flatten_head(self.conf(x), 21)
 

@@ -65,7 +65,7 @@ class TTinyDet(torch.nn.Module):
         self.Conv_2 = torch.nn.Conv2d(32, 4, 3, padding=1)
         self.Conv_3 = torch.nn.Conv2d(32, 21, 3, padding=1)
 
-    def forward(self, x):                                  # NHWC
+    def forward(self, x, generator=None, remat=False):     # NHWC
         x = F.relu(self.Conv_0(x.permute(0, 3, 1, 2)))
         x = F.relu(self.Conv_1(F.pad(x, (0, 1, 0, 1))))
         n = x.shape[0]
