@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (`objectdetection_ssd_torch`) on one CUDA
 card: builds every hand kernel (K1 greedy NMS, K2 the 3x3 filter
-gradient), holds each against its plain PyTorch version, serves SSD300
+gradient, K3 the int8 conv), holds each against its plain PyTorch
+version, serves SSD300
 requests through `Detector`, takes SSD300 train steps with K2 on the
 routed convs, times both paths, and drives the training entry point
 (Loader, Trainer, checkpoints and resume, `cli eval`, `Detector.
@@ -29,7 +30,14 @@ steps (card vs CPU with dropout 0, dropout masks from the seed), the CLI
 (`train --backbone resnet34`, `--resume`, `eval` with K1 at K = 189,
 `detect` hard and with TTA + Soft-NMS), a remat step against the plain
 one with the peak memory of each, and ResNet-34 serving, Soft-NMS, TTA,
-K1 and train-step timing.  Then one JSON line with each kernel's
+K1 and train-step timing.  Then int8: K3 bit-equal to its plain version
+at every SSD300 and ResNet-34 conv shape and ragged ones; int8 serving
+of both families calibrated on the card (K3 counted per forward, chained
+== unchained, card vs CPU, flip TTA); int8 serving at batch 256 beside
+bf16 and K3 per conv shape at batch 32 against its bound, cuDNN's bf16
+conv and `torch._int_mm`; QAT steps card vs CPU and `cli train --qat`
+-> `eval` / `detect --int8` with the fingerprint binding enforced.
+Then one JSON line with each kernel's
 numbers, the card's name and power limit as nvidia-smi gives them, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before that line.  Without CUDA it exits 1 at once.  It
@@ -250,17 +258,20 @@ def same_detections(a, b, atol: float) -> bool:
 
 def serve_requests(det, images: dict, what: str) -> tuple:
     """The serving main path: ``det.detect_batch`` on each batch of
-    ``images`` (K1's count set to 0 just before, read just after), each
-    result well formed, and the kernel path's detections equal to the
-    plain-NMS path's on the same loc/conf.  Returns (K1 launches, valid
-    detections per batch, candidates suppressed)."""
+    ``images`` (K1's and K3's counts set to 0 just before, read just
+    after), each result well formed, and the kernel path's detections
+    equal to the plain-NMS path's on the same loc/conf.  Returns (K1
+    launches, valid detections per batch, candidates suppressed, K3
+    launches)."""
     from objectdetection_ssd_torch.infer import nms_cuda
     from objectdetection_ssd_torch.infer import postprocess as pp
+    from objectdetection_ssd_torch.ops import int8_conv
     nms_cuda.launches = 0
+    int8_conv.launches = 0
     served = {b: det.detect_batch(x) for b, x in images.items()}
     if det.device.type == "cuda":
         torch.cuda.synchronize()
-    launches = nms_cuda.launches
+    launches, k3_launches = nms_cuda.launches, int8_conv.launches
 
     n_valid, n_suppressed = {}, 0
     for b, d in served.items():
@@ -282,7 +293,7 @@ def serve_requests(det, images: dict, what: str) -> tuple:
     if n_suppressed == 0 or min(n_valid.values()) == 0:
         fail(f"the {what} slice gave NMS no work ({n_valid}, "
              f"{n_suppressed})")
-    return launches, n_valid, n_suppressed
+    return launches, n_valid, n_suppressed, k3_launches
 
 
 def rel_diff(got, want) -> float:
@@ -304,7 +315,8 @@ def phase_slice(device, state_dict, batches=SERVE_BATCHES) -> dict:
                                dtype=torch.uint8).to(device)
               for b in batches}
 
-    launches, n_valid, n_suppressed = serve_requests(det, images, "SSD300")
+    launches, n_valid, n_suppressed, _ = serve_requests(det, images,
+                                                        "SSD300")
 
     # The card's loc/conf against the same model on the CPU.
     x = images[max(batches)][:CPU_CHECK_BATCH]
@@ -395,15 +407,27 @@ def train_init_state_dict(seed: int = SEED) -> dict:
 
 
 def _train_run(device, model_config, init_sd, batches, priors,
-               seed: int = 0):
+               seed: int = 0, quant_ste=None, conv_noise=None):
+    """``conv_noise``: a generator; every conv output is then moved by one
+    ulp up or down at random (a model of another summation order)."""
     from objectdetection_ssd_torch.config import OptimConfig
+    from objectdetection_ssd_torch.models.layers import TorchConv
     from objectdetection_ssd_torch.train.loop import train_step
     from objectdetection_ssd_torch.train.state import create_train_state
     state = create_train_state(model_config, OptimConfig(), device=device,
                                state_dict=init_sd)
+    if conv_noise is not None:
+        def ulp(module, args, out):
+            sign = torch.randint(0, 2, out.shape, generator=conv_noise,
+                                 device=out.device) * 2 - 1
+            return out * (1 + 2.0 ** -23 * sign)
+        for m in state.model.modules():
+            if isinstance(m, TorchConv):
+                m.register_forward_hook(ulp)
     losses = []
     for batch in batches:
-        state, metrics = train_step(state, batch, priors, seed=seed)
+        state, metrics = train_step(state, batch, priors, seed=seed,
+                                    quant_ste=quant_ste)
         losses.append(float(metrics["loss"]))
     return state, losses
 
@@ -1274,8 +1298,8 @@ def phase_resnet_slice(device, state_dict, batches=SERVE_BATCHES) -> dict:
                                generator=gen, dtype=torch.uint8).to(device)
               for b in batches}
 
-    launches, n_valid, n_suppressed = serve_requests(det, images,
-                                                     "ResNet-34")
+    launches, n_valid, n_suppressed, _ = serve_requests(det, images,
+                                                        "ResNet-34")
     if device.type == "cuda" and launches != len(batches):
         fail(f"K1 launched {launches} times for {len(batches)} ResNet-34 "
              f"requests")
@@ -1718,6 +1742,612 @@ def phase_resnet_train_timing(batch: int = TIMING_TRAIN_BATCH) -> dict:
             "windows_ms": [w * 1e3 for w in windows],
             "profile": profile_steps({"resnet34": state}, b, priors)}
 
+# ------------------------------------------------------------- int8 (K3)
+
+# K3 vs its plain version at every conv shape of SSD300 and ResNet-34 (the
+# heads included, as --int8-quantize-heads quantizes them) at this batch,
+# and at ragged shapes (N, Cin, H, W, Cout, kernel, stride, padding,
+# dilation): Cin 3, 8 and 48 (the gather path), Cout 24, 84, 126 and 189,
+# odd maps, dilation 4.
+INT8_CHECK_BATCH = 2
+INT8_RAGGED = ((2, 3, 37, 41, 126, 3, 2, 1, 1),
+               (2, 16, 13, 9, 189, 3, 1, 1, 1),
+               (3, 8, 13, 7, 24, 3, 2, 1, 1),
+               (1, 64, 5, 7, 189, 1, 1, 0, 1),
+               (2, 48, 11, 11, 84, 3, 1, 4, 4))
+# Given to K3 one byte past a 16-byte boundary: the gather path although
+# Cin % 16 == 0.
+INT8_UNALIGNED = ((2, 64, 19, 23, 40, 3, 1, 1, 1),)
+INT8_SERVE_BATCHES = (1, 8)
+INT8_CALIB_IMAGES = 16
+INT8_TIMING_BATCH = 32
+# H100 SXM dense int8 tensor-core peak (NVIDIA data sheet).
+INT8_OPS_PER_S = 1979e12
+# SSD300's quantized convs, and ResNet-34's calls of its quantized convs
+# (39 convs, neck_down twice), per forward.
+SSD300_INT8_CONVS = 23
+RESNET_INT8_CALLS = 40
+# int8 ResNet-34 card vs CPU: BN between the convs rounds differently by
+# an ulp on the two (cuDNN / native), a quantizer can round such a value
+# to the other int8 step, and 36 quantized convs in a row spread the
+# steps; so the card's outputs are held to the CPU's by the quantization
+# noise: a mean difference of at most 1.5 times the CPU's int8-vs-float
+# one, correlation above 0.999 (tests/test_torch_quant.py, against JAX).
+INT8_NOISE_RATIO = 1.5
+QAT_FIXTURE = (96, 32)
+QAT_FLOOR_FACTOR = 4.0
+
+
+def conv_calls(model, images) -> list:
+    """Every `TorchConv` call of one forward of ``model`` on ``images``:
+    its name, input shape and dtype, geometry and quantization."""
+    from objectdetection_ssd_torch.models.layers import TorchConv
+    calls = []
+
+    def hook(name):
+        def record(mod, args):
+            q = mod.quant
+            calls.append({
+                "conv": name, "shape": tuple(args[0].shape),
+                "in_dtype": args[0].dtype, "cout": mod.out_channels,
+                "geometry": (mod.kernel_size[0], mod.stride[0],
+                             mod.padding[0], mod.dilation[0]),
+                "bias": mod.bias is not None, "quantized": q is not None,
+                "int8_out": q is not None and q.out_scale is not None})
+        return record
+
+    handles = [m.register_forward_pre_hook(hook(n))
+               for n, m in model.named_modules() if isinstance(m, TorchConv)]
+    try:
+        with torch.inference_mode():
+            model(images)
+    finally:
+        for h in handles:
+            h.remove()
+    return calls
+
+
+def int8_operands(n, cin, h, w, cout, k, gen, device, aligned=True):
+    """Random int8 ``x_q`` (channels_last; ``aligned=False``: one byte past
+    a 16-byte boundary), ``w_q`` (Cout, k, k, Cin), f32 scale and bias."""
+    x = torch.randint(-127, 128, (n, h, w, cin), generator=gen,
+                      dtype=torch.int8)
+    x = x.to(device) if aligned else unaligned_nhwc(x, device)
+    w_q = torch.randint(-127, 128, (cout, k, k, cin), generator=gen,
+                        dtype=torch.int8).to(device)
+    scale = (torch.rand(cout, generator=gen) * 1e-3 + 1e-4).to(device)
+    bias = torch.randn(cout, generator=gen).to(device)
+    return x.permute(0, 3, 1, 2), w_q, scale, bias
+
+
+def unaligned_nhwc(x: torch.Tensor, device) -> torch.Tensor:
+    """``x`` on ``device`` in a buffer that starts one byte past an
+    allocation's start."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)
+    return buf[1:].view(x.shape).copy_(x)
+
+
+def phase_int8_vs_plain(device, batch: int = INT8_CHECK_BATCH,
+                        ragged=INT8_RAGGED,
+                        unaligned=INT8_UNALIGNED) -> dict:
+    """K3 against `int8_conv_plain` on the same inputs, bit-equal: every
+    conv shape of SSD300 and ResNet-34 (heads included) at ``batch``, the
+    ``ragged`` shapes and the ``unaligned`` ones (from a misaligned
+    buffer), each with f32 and bf16 output, int8 output (requantized
+    through f32 and through bf16), with and without bias.  Returns the
+    shape count and the largest |K3 - plain| (0 when bit-equal)."""
+    from objectdetection_ssd_torch.config import ModelConfig
+    from objectdetection_ssd_torch.models.ssd import build_model
+    from objectdetection_ssd_torch.ops import int8_conv as k3
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    keys = set()
+    for cfg, size in ((ModelConfig(), 300), (resnet_config(), RESNET_SIZE)):
+        model = build_model(cfg, device=device)
+        images = torch.randint(0, 256, (batch, size, size, 3), generator=gen,
+                               dtype=torch.uint8).to(device)
+        for c in conv_calls(model, images):
+            n, cin, h, w = c["shape"]
+            keys.add((n, cin, h, w, c["cout"]) + c["geometry"])
+        del model
+    shapes = ([(key, True) for key in sorted(keys) + list(ragged)]
+              + [(key, False) for key in unaligned])
+    worst, compared = 0.0, 0
+    for (n, cin, h, w, cout, k, st, pad, dil), aligned in shapes:
+        x_q, w_q, scale, bias = int8_operands(n, cin, h, w, cout, k, gen,
+                                              device, aligned)
+        geo = (st, pad, dil)
+        y = k3.int8_conv_plain(x_q, w_q, scale, bias, *geo, torch.float32)
+        out_scale = torch.clamp_min(y.float().std() / 40, 1e-12).to(device)
+        for dtype, b, o in itertools.product(
+                (torch.float32, torch.bfloat16), (bias, None),
+                (None, out_scale)):
+            kern = k3.int8_conv(x_q, w_q, scale, b, *geo, dtype, o)
+            plain = k3.int8_conv_plain(x_q, w_q, scale, b, *geo, dtype, o)
+            err = float((kern.float() - plain.float()).abs().max())
+            worst = max(worst, err)
+            compared += 1
+            if not torch.equal(kern, plain):
+                fail(f"K3 differs from its plain version by {err} at "
+                     f"{(n, cin, h, w, cout, k, st, pad, dil)} {dtype} "
+                     f"bias={b is not None} int8_out={o is not None}")
+    return {"shapes": len(shapes), "compared": compared,
+            "max_abs_err": worst}
+
+
+def calibrated_tree(model_config, state_dict, device, images,
+                    quantize_heads: bool = False) -> dict:
+    """The scale tree calibrated on ``images`` (batches of 8) with the
+    float model the quantized Detector holds: f32 weights, compute
+    dtype."""
+    from objectdetection_ssd_torch.infer import quant
+    from objectdetection_ssd_torch.models.ssd import build_model
+    model = build_model(model_config, device=device, train=True)
+    model.load_state_dict(state_dict, strict=True)
+    stats = quant.calibrate(model, images.split(8))
+    return quant.act_scales(stats, quantize_heads=quantize_heads)
+
+
+def noise_ratio(got, int8, float_) -> tuple:
+    """(mean |got - int8| / mean |int8 - float|, correlation of got with
+    int8), the worst over loc and conf."""
+    ratio, corr = 0.0, 1.0
+    for g, q, f in zip(got, int8, float_):
+        g, q, f = (t.detach().cpu().float().reshape(-1) for t in (g, q, f))
+        ratio = max(ratio, float((g - q).abs().mean() / (q - f).abs().mean()))
+        corr = min(corr, float(torch.corrcoef(torch.stack([g, q]))[0, 1]))
+    return ratio, corr
+
+
+def phase_int8_slice(device, state_dict, resnet_state_dict,
+                     batches=INT8_SERVE_BATCHES) -> dict:
+    """int8 serving.  SSD300: calibrate on the card over
+    ``INT8_CALIB_IMAGES`` synthetic images, serve bf16 requests through
+    the chained Detector (K1 and K3 counted around them; the kernel path's
+    detections == the plain-NMS path's), chained == unchained bit for bit,
+    and the card's f32 int8 loc/conf within 1e-3 of the CPU port's on the
+    same scale tree.  ResNet-34: the same, unchained (no exact chain edge),
+    with flip TTA, and card vs CPU held by the quantization noise."""
+    from objectdetection_ssd_torch.config import Config, ModelConfig
+    from objectdetection_ssd_torch.infer import quant
+    from objectdetection_ssd_torch.infer.detector import Detector
+    from objectdetection_ssd_torch.ops import int8_conv as k3
+
+    cuda = device.type == "cuda"
+    gen = torch.Generator().manual_seed(SEED + 21)
+    out = {}
+
+    def images_of(size, batch_sizes):
+        return {b: torch.randint(0, 256, (b, size, size, 3), generator=gen,
+                                 dtype=torch.uint8).to(device)
+                for b in batch_sizes}
+
+    # SSD300.
+    cfg = Config(model=ModelConfig(compute_dtype="bfloat16"))
+    calib = images_of(300, (INT8_CALIB_IMAGES,))[INT8_CALIB_IMAGES]
+    qtree = calibrated_tree(cfg.model, state_dict, device, calib)
+    chained = quant.chain_scales(qtree, "vgg16")
+    if quant.count_quantized(qtree) != SSD300_INT8_CONVS:
+        fail(f"SSD300 calibration quantizes {quant.count_quantized(qtree)} "
+             f"convs")
+    det_c = Detector(cfg, state_dict, device=device, quant=chained)
+    det_u = Detector(cfg, state_dict, device=device, quant=qtree)
+    images = images_of(300, batches)
+    k1, n_valid, n_suppressed, k3_launches = serve_requests(
+        det_c, images, "SSD300 int8")
+    if cuda and (k3_launches != SSD300_INT8_CONVS * len(batches)
+                 or k1 != len(batches)):
+        fail(f"{len(batches)} SSD300 int8 requests launched K3 "
+             f"{k3_launches} times and K1 {k1} times")
+    x = images[max(batches)]
+    with torch.inference_mode():
+        same = all(torch.equal(a, b) for a, b in
+                   zip(det_c.forward(x), det_u.forward(x)))
+    if not same:
+        fail("SSD300 int8 chained != unchained")
+    out["ssd300"] = {"k1": k1, "k3": k3_launches, "valid": n_valid,
+                     "suppressed": n_suppressed}
+    cfg32 = Config()
+    card = Detector(cfg32, state_dict, device=device, quant=chained)
+    cpu = Detector(cfg32, state_dict, device="cpu", quant=chained)
+    xc = x[:CPU_CHECK_BATCH]
+    out["ssd300"]["card_vs_cpu_rel"] = rel_diff(card.forward(xc),
+                                                cpu.forward(xc.cpu()))
+    # The quantized convs are exact on both; the float heads and the
+    # L2Norm sum in another order: 1e-3 of each output's scale, as f32.
+    if not out["ssd300"]["card_vs_cpu_rel"] <= 1e-3:
+        fail(f"SSD300 int8 card vs CPU loc/conf differ by "
+             f"{out['ssd300']['card_vs_cpu_rel']:.3e}")
+    del det_c, det_u, card, cpu
+
+    # ResNet-34.
+    cfg = Config(model=resnet_config(compute_dtype="bfloat16"))
+    calib = images_of(RESNET_SIZE, (INT8_CALIB_IMAGES,))[INT8_CALIB_IMAGES]
+    rtree = calibrated_tree(cfg.model, resnet_state_dict, device, calib)
+    if quant.chain_scales(rtree, "resnet34") != rtree:
+        fail("a ResNet-34 scale tree gained chain edges")
+    det = Detector(cfg, resnet_state_dict, device=device, quant=rtree)
+    images = images_of(RESNET_SIZE, batches)
+    k1, n_valid, n_suppressed, k3_launches = serve_requests(
+        det, images, "ResNet-34 int8")
+    if cuda and (k3_launches != RESNET_INT8_CALLS * len(batches)
+                 or k1 != len(batches)):
+        fail(f"{len(batches)} ResNet-34 int8 requests launched K3 "
+             f"{k3_launches} times and K1 {k1} times")
+    out["resnet34"] = {"k1": k1, "k3": k3_launches, "valid": n_valid,
+                       "suppressed": n_suppressed,
+                       "convs": quant.count_quantized(rtree)}
+    tta = Detector(cfg, resnet_state_dict, device=device, quant=rtree,
+                   postprocess_config=dataclasses.replace(cfg.postprocess,
+                                                          tta_flip=True))
+    x = images[max(batches)]
+    k3.launches = 0
+    d = tta.detect_batch(x)
+    if cuda:
+        torch.cuda.synchronize()
+    tta_launches = k3.launches
+    if cuda and tta_launches != 2 * RESNET_INT8_CALLS:
+        fail(f"ResNet-34 int8 flip TTA launched K3 {tta_launches} times")
+    if (not torch.isfinite(d.boxes_xyxy).all() or int(d.valid.sum()) == 0
+            or tta.mirror_perm is None):
+        fail("ResNet-34 int8 flip TTA gave no detections")
+    out["resnet34"].update(tta_k3=tta_launches,
+                           tta_valid=int(d.valid.sum()))
+    cfg32 = Config(model=resnet_config())
+    xc = x[:CPU_CHECK_BATCH]
+    card = Detector(cfg32, resnet_state_dict, device=device, quant=rtree)
+    cpu = Detector(cfg32, resnet_state_dict, device="cpu", quant=rtree)
+    cpu_float = Detector(cfg32, resnet_state_dict, device="cpu")
+    got = card.forward(xc)
+    want = cpu.forward(xc.cpu())
+    ratio, corr = noise_ratio(got, want, cpu_float.forward(xc.cpu()))
+    out["resnet34"].update(card_vs_cpu_rel=rel_diff(got, want),
+                           noise_ratio=ratio, corr=corr)
+    if not (ratio <= INT8_NOISE_RATIO and corr > 0.999):
+        fail(f"ResNet-34 int8 card vs CPU: {ratio:.3f} of the quantization "
+             f"noise, correlation {corr:.5f}")
+    return out
+
+
+def im2col_int8(x_q, k, stride, padding, dilation) -> torch.Tensor:
+    """The (N*Ho*Wo, Kp) int8 matrix of ``x_q``'s receptive fields, K
+    padded with zeros to a multiple of 8 (`torch._int_mm`'s yardstick)."""
+    import torch.nn.functional as F
+    n = x_q.shape[0]
+    cols = F.unfold(x_q.half(), k, dilation=dilation, padding=padding,
+                    stride=stride)                   # (N, K, L), exact
+    kk = cols.shape[1]
+    a = cols.transpose(1, 2).reshape(n * cols.shape[2], kk)
+    kp = -(-kk // 8) * 8
+    if kp != kk:
+        a = torch.nn.functional.pad(a, (0, kp - kk))
+    return a.to(torch.int8).contiguous()
+
+
+def graph_ms(fn, reps: int = 10, replays: int = 5) -> float:
+    """Device ms per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events, so that no host
+    time between launches is counted (a small conv's kernel is shorter
+    than the Python call that launches it)."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def k3_shape_timing(conv, call, gen) -> dict:
+    """K3 at one quantized conv's batch-32 shape of the serving forward
+    (its own int8 weights, scales and output mode, random int8 input):
+    bit-equal to the plain version, then its device time per launch
+    (`graph_ms`) and CUDA-event time per direct call (host time between
+    launches included), the bound, the plain version, and, each by
+    `graph_ms`, cuDNN's bf16 conv of the same shape and `torch._int_mm`
+    on the int8 im2col matrix of the same GEMM."""
+    import torch.nn.functional as F
+    from objectdetection_ssd_torch.ops import int8_conv as k3
+    n, cin, h, w = call["shape"]
+    k, st, pad, dil = call["geometry"]
+    cout = call["cout"]
+    w_q, s_w = conv.int8_weight()
+    q = conv.quant
+    scale = q.act_scale * s_w
+    bias = None if conv.bias is None else conv.bias.detach().float()
+    x_q = torch.randint(-127, 128, (n, h, w, cin), generator=gen,
+                        device="cuda", dtype=torch.int8).permute(0, 3, 1, 2)
+    args = (x_q, w_q, scale, bias, st, pad, dil, q.dtype, q.out_scale)
+    kern = k3.int8_conv(*args)
+    if not torch.equal(kern, k3.int8_conv_plain(*args)):
+        fail(f"K3 differs from its plain version at {call['conv']} batch "
+             f"{n}")
+    ho, wo = kern.shape[2], kern.shape[3]
+    m = n * ho * wo
+    kk = k * k * cin
+    out_bytes = 1 if q.out_scale is not None else kern.element_size()
+    ops = 2 * m * cout * kk
+    nbytes = (x_q.numel() + w_q.numel() + m * cout * out_bytes
+              + cout * 4 * (1 if bias is None else 2))
+    t_ops, t_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    run = lambda: k3.int8_conv(*args)                       # noqa: E731
+    dev_ms = graph_ms(run)
+    row = {"conv": call["conv"], "shape": [n, cin, h, w, cout, k, st, pad,
+                                           dil],
+           "out": "int8" if q.out_scale is not None else str(q.dtype)[6:],
+           "ms": dev_ms, "host_ms": cuda_ms(run, iters=20),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "tops": ops / (dev_ms * 1e-3) / 1e12,
+           "plain_ms": cuda_ms(lambda: k3.int8_conv_plain(*args), iters=2,
+                               warmup=1)}
+    xb = torch.randn(n, cin, h, w, generator=None, device="cuda",
+                     dtype=torch.bfloat16).contiguous(
+                         memory_format=torch.channels_last)
+    wb = w_q.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    bb = None if bias is None else bias.to(torch.bfloat16)
+    row["cudnn_bf16_ms"] = graph_ms(lambda: F.conv2d(xb, wb, bb, st, pad,
+                                                     dil))
+    del xb, wb
+    a = im2col_int8(x_q, k, st, pad, dil)
+    b = torch.randint(-127, 128, (cout, a.shape[1]), generator=gen,
+                      device="cuda", dtype=torch.int8).t()
+    row["library_ms"], refused = None, []
+    for layout, bb in (("column-major", b), ("row-major", b.contiguous())):
+        try:
+            row["library_ms"] = graph_ms(lambda: torch._int_mm(a, bb))
+        except RuntimeError as e:
+            refused.append(f"{layout}: {str(e).splitlines()[0][:100]}")
+            continue
+        row["library"] = (f"torch._int_mm ({m}, {a.shape[1]}) x "
+                          f"({a.shape[1]}, {cout}) {layout}")
+        break
+    else:
+        row["library"] = "torch._int_mm refused: " + "; ".join(refused)
+    del a, b
+    return row
+
+
+def phase_int8_timing(state_dict, resnet_state_dict) -> dict:
+    """int8 serving at batch 256 bf16: SSD300 chained and unchained beside
+    bf16 serving in the same run (in turns, twice), their forwards; K3
+    per SSD300 quantized conv at batch 32 (`k3_shape_timing`); ResNet-34
+    int8 serving beside bf16."""
+    from objectdetection_ssd_torch.config import Config, ModelConfig
+    from objectdetection_ssd_torch.infer import quant
+    from objectdetection_ssd_torch.infer.detector import Detector
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    out = {}
+    for family, cfg, sd, size in (
+            ("ssd300", Config(model=ModelConfig(compute_dtype="bfloat16")),
+             state_dict, 300),
+            ("resnet34", Config(model=resnet_config(
+                compute_dtype="bfloat16")), resnet_state_dict,
+             RESNET_SIZE)):
+        x = torch.randint(0, 256, (TIMING_BATCH, size, size, 3),
+                          generator=gen, device="cuda", dtype=torch.uint8)
+        qtree = calibrated_tree(cfg.model, sd, "cuda",
+                                x[:INT8_CALIB_IMAGES])
+        dets = {"bf16": Detector(cfg, sd, device="cuda"),
+                "int8": Detector(cfg, sd, device="cuda", quant=qtree)}
+        if family == "ssd300":
+            dets["int8 chained"] = Detector(
+                cfg, sd, device="cuda",
+                quant=quant.chain_scales(qtree, "vgg16"))
+        steps = {key: [] for key in dets}
+        for order in (list(dets), list(dets)[::-1]):
+            for key in order:
+                steps[key].append(chained_step_s(dets[key], x))
+        rows = {}
+        for key, det in dets.items():
+            best = min(steps[key])
+            with torch.inference_mode():
+                fwd = cuda_ms(lambda: det.forward(x), iters=5)
+            rows[key] = {"images_per_s": TIMING_BATCH / best,
+                         "step_ms": best * 1e3,
+                         "step_ms_runs": [t * 1e3 for t in steps[key]],
+                         "forward_ms": fwd}
+        out[family] = rows
+        det = dets.get("int8 chained")
+        del dets
+        torch.cuda.empty_cache()
+        if det is not None:
+            calls = [c for c in conv_calls(det.model, x[:INT8_TIMING_BATCH])
+                     if c["quantized"]]
+            if len(calls) != SSD300_INT8_CONVS:
+                fail(f"{len(calls)} quantized conv calls in SSD300")
+            g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+            out["k3"] = []
+            for c in calls:
+                out["k3"].append(k3_shape_timing(
+                    det.model.get_submodule(c["conv"]), c, g))
+                torch.cuda.empty_cache()
+            del det
+    return out
+
+
+def phase_qat(device, steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
+              fixture=QAT_FIXTURE, cli_batch: int = 32) -> dict:
+    """QAT.  ``steps`` f32 `train_step(quant_ste=)` on the card against the
+    CPU, under the train slice's gates (scales calibrated on the first
+    batch).  Then the CLI on a `write_fixture` VOCdevkit: `train --qat`
+    (bf16, SSD300) writes quant_scales.json bound to its checkpoint;
+    `eval --int8` and `detect --int8` serve those scales (K3 and K1
+    counted around them); a checkpoint trained on without --qat makes
+    `eval --int8` exit, and `--recalibrate` calibrates afresh.  The card's
+    machine has no PIL: image reads come from the packed caches."""
+    import io
+    import os
+    import tempfile
+
+    from objectdetection_ssd_torch import cli
+    from objectdetection_ssd_torch.config import ModelConfig
+    from objectdetection_ssd_torch.data import cache
+    from objectdetection_ssd_torch.data import pipeline as data_pipeline
+    from objectdetection_ssd_torch.infer import nms_cuda, quant
+    from objectdetection_ssd_torch.models.ssd import build_model
+    from objectdetection_ssd_torch.ops import int8_conv as k3
+    from objectdetection_ssd_torch.ops.priors import ssd300_priors
+    from objectdetection_ssd_torch.train.checkpoint import CheckpointManager
+
+    cuda = device.type == "cuda"
+    gen = torch.Generator().manual_seed(SEED + 24)
+    batches = [synthetic_batch(batch, gen) for _ in range(steps)]
+    priors = torch.tensor(ssd300_priors())
+    init_sd = train_init_state_dict()
+    model = build_model(ModelConfig(), device="cpu", train=True)
+    model.load_state_dict(init_sd)
+    qtree = quant.chain_scales(quant.act_scales(quant.calibrate(
+        model, [batches[0]["images"]])), "vgg16")
+    del model
+    cpu = torch.device("cpu")
+    state, losses = _train_run(device, ModelConfig(), init_sd, batches,
+                               priors, quant_ste=qtree)
+    cpu_state, cpu_losses = _train_run(cpu, ModelConfig(), init_sd, batches,
+                                       priors, quant_ste=qtree)
+    # The floor: the CPU against itself with every conv output moved by
+    # one ulp, the size of another summation order's rounding.  A fake
+    # quantizer can round such noise to the other step, so the QAT steps
+    # diverge far more than float steps do.
+    ulp_state, ulp_losses = _train_run(
+        cpu, ModelConfig(), init_sd, batches, priors, quant_ste=qtree,
+        conv_noise=torch.Generator().manual_seed(SEED + 25))
+    cpu_params = dict(cpu_state.model.named_parameters())
+    out = {"losses": losses}
+    for key, params, run_losses in (
+            ("card", state.model.named_parameters(), losses),
+            ("floor", ulp_state.model.named_parameters(), ulp_losses)):
+        rows = change_rows(dict(params), cpu_params, init_sd)
+        out[key] = {"loss_rel": max(abs(a - b) / abs(b) for a, b in
+                                    zip(run_losses, cpu_losses)),
+                    "delta_rel": rows[0][0], "delta_worst": rows[0][2],
+                    "delta_norm_rel": max(r[1] for r in rows)}
+    # The card is held to the train slice's gates or to QAT_FLOOR_FACTOR
+    # times the floor, whichever is looser: two draws of the same rounding
+    # noise through the same quantizers.
+    card, floor = out["card"], out["floor"]
+    for key, gate in (("loss_rel", TRAIN_LOSS_RTOL),
+                      ("delta_rel", TRAIN_DELTA_TOL),
+                      ("delta_norm_rel", TRAIN_DELTA_NORM_TOL)):
+        limit = max(gate, QAT_FLOOR_FACTOR * floor[key])
+        if not card[key] <= limit:
+            fail(f"QAT card vs CPU {key} {card[key]:.3e} > {limit:.3e} "
+                 f"(floor {floor[key]:.3e}): losses {losses} vs "
+                 f"{cpu_losses}; worst {card['delta_worst']}")
+    if any(m.quant is not None for m in state.model.modules()
+           if hasattr(m, "quant")):
+        fail("train_step left fake-quant scales attached")
+    del state, cpu_state, ulp_state
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_qat_") as tmp:
+        root = os.path.join(tmp, "VOCdevkit")
+        prefix = os.path.join(tmp, "cache")
+        ckpt = os.path.join(tmp, "ckpt")
+        train_recs, val_recs = write_fixture(root, prefix, *fixture)
+        index = {r.image_path: (prefix, i) for i, r in enumerate(train_recs)}
+        index.update({r.image_path: (prefix + ".val", i)
+                      for i, r in enumerate(val_recs)})
+        serve = ["--voc-root", root, "--checkpoint-dir", ckpt, "--bf16",
+                 "--batch-size", str(cli_batch), "--num-workers", "0"] + (
+                     [] if cuda else ["--device", "cpu"])
+        common = serve + ["--image-cache", prefix]
+
+        def run(argv) -> tuple:
+            text, err = io.StringIO(), io.StringIO()
+            try:
+                with contextlib.redirect_stdout(text), \
+                        contextlib.redirect_stderr(err):
+                    rc = cli.main(argv)
+            except SystemExit as e:
+                raise SystemExit(f"cli {argv[0]}: {e} "
+                                 f"{err.getvalue()[-300:]}") from e
+            if rc != 0:
+                fail(f"cli {argv[0]} rc {rc}: {text.getvalue()[-300:]}")
+            return text.getvalue(), err.getvalue()
+
+        def counted(argv) -> tuple:
+            nms_cuda.launches = 0
+            k3.launches = 0
+            text, err = run(argv)
+            if cuda:
+                torch.cuda.synchronize()
+            return text, err, nms_cuda.launches, k3.launches
+
+        load_image = data_pipeline.load_image
+        data_pipeline.load_image = lambda p: cache.get_image(*index[p])
+        try:
+            run(["train", "--qat", "--epochs", "1"] + common)
+            path = os.path.join(ckpt, quant.SCALES_FILENAME)
+            meta = quant.load_scales_meta(path)
+            payload, _, epoch = CheckpointManager(ckpt).load()
+            saved = quant.load_scales(path)
+            if (meta.get("param_fingerprint")
+                    != quant.param_fingerprint(payload["model"])
+                    or meta.get("epoch") != epoch or epoch != 0
+                    or quant.count_quantized(saved) != SSD300_INT8_CONVS):
+                fail(f"train --qat wrote {meta} for checkpoint epoch {epoch}")
+            text, err, k1, k3_launches = counted(["eval", "--int8"] + common)
+            evals = -(-len(val_recs) // cli_batch)
+            m = re.search(r"mAP = ([-+0-9.eEnaif]+)", text)
+            if (m is None or "using QAT-trained scales" not in err
+                    or (cuda and (k1 != evals or k3_launches
+                                  != SSD300_INT8_CONVS * evals))):
+                fail(f"cli eval --int8: K1 {k1}, K3 {k3_launches}: "
+                     f"{err[-300:]} {text[-200:]}")
+            out["eval"] = {"map": float(m.group(1)), "batches": evals,
+                           "k1": k1, "k3": k3_launches}
+            paths = [r.image_path for r in val_recs[:4]]
+            text, err, k1, k3_launches = counted(
+                ["detect", *paths, "--int8"] + serve)
+            lines = text.splitlines()
+            if ([ln for ln in lines if not ln.startswith(" ")] != paths
+                    or "using QAT-trained scales" not in err
+                    or (cuda and (k1 != 1
+                                  or k3_launches != SSD300_INT8_CONVS))):
+                fail(f"cli detect --int8: K1 {k1}, K3 {k3_launches}: "
+                     f"{text[-300:]}")
+            out["detect"] = {"lines": len(lines) - len(paths), "k1": k1,
+                             "k3": k3_launches}
+            # Train on without --qat: the saved scales are now stale.
+            run(["train", "--epochs", "2", "--resume"] + common)
+            try:
+                run(["eval", "--int8"] + common)
+            except SystemExit as e:
+                if "--recalibrate" not in str(e):
+                    raise
+                out["stale"] = str(e).splitlines()[0][:120]
+            else:
+                fail("cli eval --int8 served scales of other weights")
+            text, err, k1, k3_launches = counted(
+                ["eval", "--int8", "--recalibrate", "--int8-calib-images",
+                 "32"] + common)
+            n_calib = min(32, len(train_recs))
+            if (f"calibrated {SSD300_INT8_CONVS} convs on {n_calib} images"
+                    not in err):
+                fail(f"cli eval --int8 --recalibrate: {err[-300:]}")
+            out["recalibrated"] = {"k1": k1, "k3": k3_launches}
+        finally:
+            data_pipeline.load_image = load_image
+    return out
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1734,6 +2364,7 @@ def main(argv=None) -> int:
     from objectdetection_ssd_torch import cuda_build
     from objectdetection_ssd_torch.infer import nms_cuda
     from objectdetection_ssd_torch.ops import dw_cuda
+    from objectdetection_ssd_torch.ops import int8_conv
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1745,13 +2376,15 @@ def main(argv=None) -> int:
     # Build from the checkout's sources, not from an earlier build: one
     # nvcc per source, all started together.
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
-    sources = {"K1": nms_cuda.SOURCE, "K2": dw_cuda.SOURCE}
+    sources = {"K1": nms_cuda.SOURCE, "K2": dw_cuda.SOURCE,
+               "K3": int8_conv.SOURCE}
     for path in args.k1_baseline:
         sources[f"K1 baseline {path.stem}"] = path.resolve()
     t0 = time.perf_counter()
     cuda_build.compile_sources(sources.values())
     nms_cuda.build()
     dw_cuda.build()
+    int8_conv.build()
     build_s = time.perf_counter() - t0
     k1_baselines = {path.stem: k1_library_launcher(path.resolve())
                     for path in args.k1_baseline}
@@ -2019,9 +2652,88 @@ def main(argv=None) -> int:
     k1_launches += (rs["launches"] + rtr["eval"]["launches"]
                     + rtr["detect"]["hard"]["launches"])
 
+    # int8 serving (K3) and QAT.
+    t_phase = time.perf_counter()
+    iv = phase_int8_vs_plain(device)
+    print(f"int8 kernel: K3 bit-equal to its plain version at "
+          f"{iv['shapes']} shapes (every SSD300 and ResNet-34 conv at batch "
+          f"{INT8_CHECK_BATCH}, heads included, ragged and unaligned ones), "
+          f"{iv['compared']} comparisons: f32 / bf16 / int8 output, with "
+          f"and without bias (max_abs_err {iv['max_abs_err']})")
+    isl = phase_int8_slice(device, sd, rsd)
+    a, b = isl["ssd300"], isl["resnet34"]
+    print(f"int8 slice: SSD300 calibrated on the card over "
+          f"{INT8_CALIB_IMAGES} images, {SSD300_INT8_CONVS} convs, chained "
+          f"bf16 detect_batch on {list(INT8_SERVE_BATCHES)}: valid "
+          f"{a['valid']}, suppressed {a['suppressed']}, K3 launches "
+          f"{a['k3']} ({SSD300_INT8_CONVS} per forward), K1 {a['k1']}, "
+          f"kernel == plain-NMS detections, chained == unchained bit for "
+          f"bit; f32 int8 card vs CPU loc/conf {a['card_vs_cpu_rel']:.3e} "
+          f"of scale")
+    print(f"int8 slice: ResNet-34 {b['convs']} convs, unchained bf16 "
+          f"detect_batch on {list(INT8_SERVE_BATCHES)}: valid {b['valid']}, "
+          f"suppressed {b['suppressed']}, K3 launches {b['k3']} "
+          f"({RESNET_INT8_CALLS} per forward), K1 {b['k1']}; flip TTA K3 "
+          f"{b['tta_k3']}, valid {b['tta_valid']}; f32 int8 card vs CPU "
+          f"{b['card_vs_cpu_rel']:.3e} of scale, {b['noise_ratio']:.3f} of "
+          f"the CPU's int8-vs-float difference (limit "
+          f"{INT8_NOISE_RATIO}), correlation {b['corr']:.6f}")
+    it = phase_int8_timing(sd, rsd)
+    for family in ("ssd300", "resnet34"):
+        print(f"int8 timing: {family} batch {TIMING_BATCH} ({smi}), best "
+              f"of 3 windows of 10 chained steps, in turns twice: " +
+              "; ".join(f"{key} {r['images_per_s']:.1f} images/s "
+                        f"({r['step_ms']:.3f} ms/step, runs "
+                        f"{[round(t, 3) for t in r['step_ms_runs']]}), "
+                        f"forward {r['forward_ms']:.3f} ms"
+                        for key, r in it[family].items()))
+    for r in it["k3"]:
+        lib = ("null" if r["library_ms"] is None
+               else f"{r['library_ms'] * 1e3:.1f} us")
+        print(f"int8 timing: K3 {r['conv']} {r['shape']} -> {r['out']} "
+              f"({smi}): device {r['ms'] * 1e3:.1f} us per launch (CUDA "
+              f"graph, {r['tops']:.1f} TOPS), {r['host_ms'] * 1e3:.1f} us per "
+              f"direct call (CUDA events); "
+              f"bound {r['bound_ms'] * 1e3:.1f} us by {r['bound_by']}; "
+              f"plain {r['plain_ms'] * 1e3:.1f} us; cuDNN bf16 conv "
+              f"{r['cudnn_bf16_ms'] * 1e3:.1f} us; {r['library']}: {lib}")
+    k3_rows = it["k3"]
+    print(f"int8 timing: K3 over the {len(k3_rows)} quantized convs of one "
+          f"batch-{INT8_TIMING_BATCH} SSD300 forward: device "
+          f"{sum(r['ms'] for r in k3_rows):.3f} ms, bound "
+          f"{sum(r['bound_ms'] for r in k3_rows):.3f} ms, cuDNN bf16 "
+          f"{sum(r['cudnn_bf16_ms'] for r in k3_rows):.3f} ms")
+    qa = phase_qat(device)
+    print(f"qat: {TRAIN_STEPS} f32 train_steps (quant_ste, TF32 off) batch "
+          f"{TRAIN_BATCH}: losses {[round(x, 6) for x in qa['losses']]}; " +
+          "; ".join(f"{label}: losses {r['loss_rel']:.3e} relative, "
+                    f"parameter changes {r['delta_norm_rel']:.3e} in norm "
+                    f"and {r['delta_rel']:.3e} of their largest "
+                    f"({r['delta_worst']})"
+                    for label, r in (("card vs CPU", qa["card"]),
+                                     ("floor, CPU vs CPU with each conv "
+                                      "output an ulp off", qa["floor"])))
+          + f" (limit: the train gates or {QAT_FLOOR_FACTOR} x the floor)")
+    print(f"qat: cli train --qat -> quant_scales.json bound to the "
+          f"checkpoint; cli eval --int8 mAP {qa['eval']['map']:.4f}, "
+          f"{qa['eval']['batches']} batches, K3 {qa['eval']['k3']}, K1 "
+          f"{qa['eval']['k1']}; cli detect --int8 {qa['detect']['lines']} "
+          f"detections, K3 {qa['detect']['k3']}, K1 {qa['detect']['k1']}; "
+          f"after training on: {qa['stale']!r}; --recalibrate K3 "
+          f"{qa['recalibrated']['k3']}")
+    print(f"int8 phases took {time.perf_counter() - t_phase:.1f} s")
+    k1_launches += (a["k1"] + b["k1"] + qa["eval"]["k1"]
+                    + qa["detect"]["k1"])
+    k3_launches = (a["k3"] + b["k3"] + b["tta_k3"] + qa["eval"]["k3"]
+                   + qa["detect"]["k3"])
+
     k2 = tt["k2"]
     k2_ops = sum(r["ops_ms"] for r in k2)
     k2_bytes = sum(r["bytes_ms"] for r in k2)
+    k3_ops = sum(r["bound_ms"] for r in k3_rows if r["bound_by"]
+                 == "operations")
+    k3_bytes = sum(r["bound_ms"] for r in k3_rows if r["bound_by"]
+                   == "bytes")
 
     serve_k1 = tm["k1"][0]
     print(json.dumps({"kernels": [{
@@ -2069,6 +2781,28 @@ def main(argv=None) -> int:
         "per_shape": [{key: r[key] for key in (
             "conv", "shape", "kernel", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")} for r in k2],
+    }, {
+        "name": "int8_conv",
+        "route": "cuda",
+        "source": "objectdetection_ssd_torch/csrc/int8_conv.cu",
+        "replaces": "objectdetection_ssd_tpu/models/layers.py:124 "
+                    "(Int8Conv, XLA)",
+        # int8 serving requests (SSD300, ResNet-34, its flip TTA) and the
+        # QAT phase's cli eval and detect.
+        "launches": k3_launches,
+        "max_abs_err": iv["max_abs_err"],
+        # The 23 launches of one batch-32 SSD300 int8 forward, summed.
+        "ms": sum(r["ms"] for r in k3_rows),
+        "host_ms": sum(r["host_ms"] for r in k3_rows),
+        "plain_ms": sum(r["plain_ms"] for r in k3_rows),
+        "bound_ms": sum(r["bound_ms"] for r in k3_rows),
+        "bound_by": "operations" if k3_ops >= k3_bytes else "bytes",
+        "library_ms": (None if any(r["library_ms"] is None for r in k3_rows)
+                       else sum(r["library_ms"] for r in k3_rows)),
+        "per_shape": [{key: r[key] for key in (
+            "conv", "shape", "out", "ms", "host_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "cudnn_bf16_ms")}
+            for r in k3_rows],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,11 @@ Usage:
   python -m objectdetection_ssd_torch.cli detect img1.jpg img2.jpg
 
 Both model families (``--backbone vgg16 | resnet34``), remat, Soft-NMS
-and flip TTA, and the ``--init-*`` weight loaders are ported.  Flags of
-features that are not ported yet (the mesh and pipeline strategies, int8
-and QAT, export, TensorBoard, profiling, ``--draw``, ``doctor``) are not
-accepted.
+and flip TTA, the ``--init-*`` weight loaders, int8 serving (``eval`` /
+``detect --int8``, on kernel K3) and QAT (``train --qat``) are ported.
+Flags of features that are not ported yet (the mesh and pipeline
+strategies, export and ``--latency-profile``, TensorBoard, profiling,
+``--draw``, ``doctor``) are not accepted.
 
 This module imports no torch at import time: the Loader's spawn workers
 import the ``__main__`` module, which is this one under ``python -m``.
@@ -132,7 +133,110 @@ def build_config(args) -> config_lib.Config:
     if pp_kw:
         cfg = cfg.replace(postprocess=dataclasses.replace(
             cfg.postprocess, **pp_kw))
+    q_kw = {}
+    if getattr(args, "int8", False):
+        q_kw["int8"] = True
+    if getattr(args, "int8_calib_images", None) is not None:
+        q_kw["calib_images"] = args.int8_calib_images
+    if getattr(args, "int8_quantize_heads", False):
+        q_kw["quantize_heads"] = True
+    if getattr(args, "no_int8_chain", False):
+        q_kw["chain_requant"] = False
+    if getattr(args, "recalibrate", False):
+        q_kw["recalibrate"] = True
+    if getattr(args, "qat", False):
+        q_kw["qat"] = True
+    if q_kw:
+        cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, **q_kw))
     return cfg
+
+
+def _build_quant(cfg: config_lib.Config, weights, device,
+                 records=None, image_paths=None):
+    """The int8 scale tree for ``--int8`` (None when it is off).
+
+    A ``quant_scales.json`` in the checkpoint directory (written by
+    ``train --qat``) is used when its fingerprint matches ``weights``; one
+    that does not is a hard error, and ``--recalibrate`` ignores the file.
+    Otherwise the scales are calibrated on ``weights`` from ``records``
+    (eval: the train split, the usual PTQ recipe) or ``image_paths``
+    (detect: its own input images)."""
+    if not cfg.quant.int8:
+        return None
+    import os
+    import numpy as np
+    from objectdetection_ssd_torch.data import pipeline as data_pipeline
+    from objectdetection_ssd_torch.infer import quant as quant_lib
+    from objectdetection_ssd_torch.models.ssd import build_model
+    saved = os.path.join(cfg.train.checkpoint_dir, quant_lib.SCALES_FILENAME)
+    if os.path.exists(saved) and not cfg.quant.recalibrate:
+        try:
+            quant_lib.verify_scales_binding(saved, weights)
+        except ValueError as e:
+            raise SystemExit(f"error: {e}")
+        qtree = quant_lib.load_scales(saved)
+        # A QAT run saves the chained tree: --no-int8-chain strips it.
+        qtree = (quant_lib.chain_scales(qtree, cfg.model.backbone)
+                 if cfg.quant.chain_requant
+                 else quant_lib.unchain_scales(qtree))
+        print(f"int8: using QAT-trained scales from {saved} "
+              f"({quant_lib.count_quantized(qtree)} convs)", file=sys.stderr)
+        return qtree
+    paths = (image_paths if image_paths is not None
+             else [r.image_path for r in records])
+    n = max(1, min(cfg.quant.calib_images, len(paths)))
+    paths = paths[:n]
+    size = cfg.model.image_size
+    u8 = cfg.data.transfer_dtype == "uint8"
+    bs = min(cfg.data.batch_size, n)
+
+    def batches():
+        for start in range(0, n, bs):
+            imgs = []
+            for p in paths[start:start + bs]:
+                img = data_pipeline.preprocess_image(
+                    data_pipeline.load_image(p), size, normalize=not u8)
+                imgs.append(data_pipeline.quantize_uint8(img) if u8 else img)
+            while len(imgs) < bs:           # one batch shape, as in JAX
+                imgs.append(imgs[-1])
+            yield np.stack(imgs)
+
+    # The float model the Detector quantizes: f32 weights, compute dtype.
+    model = build_model(cfg.model, device=device, train=True)
+    model.load_state_dict(weights, strict=True)
+    stats = quant_lib.calibrate(model, batches())
+    del model
+    qtree = quant_lib.act_scales(stats,
+                                 quantize_heads=cfg.quant.quantize_heads)
+    if cfg.quant.chain_requant:
+        qtree = quant_lib.chain_scales(qtree, cfg.model.backbone)
+    print(f"int8: calibrated {quant_lib.count_quantized(qtree)} convs "
+          f"on {n} images", file=sys.stderr)
+    return qtree
+
+
+def _int8_flags(p: argparse.ArgumentParser):
+    """int8 serving flags (eval / detect)."""
+    p.add_argument("--int8", action="store_true",
+                   help="post-training int8 quantization of the conv stack "
+                        "(kernel K3; calibrates activation scales first, "
+                        "see infer/quant.py)")
+    p.add_argument("--int8-calib-images", type=int, default=None,
+                   metavar="N",
+                   help="calibration set size (default 64; eval draws from "
+                        "the train split, detect from the input images)")
+    p.add_argument("--int8-quantize-heads", action="store_true",
+                   help="also quantize the loc/conf heads (default keeps "
+                        "them float, the usual PTQ accuracy recipe)")
+    p.add_argument("--no-int8-chain", action="store_true",
+                   help="disable the int8 requant chain (consecutive "
+                        "quantized convs passing int8 directly, bit-exact; "
+                        "default on; this flag exists for A/B measurement)")
+    p.add_argument("--recalibrate", action="store_true",
+                   help="ignore the checkpoint dir's saved "
+                        "quant_scales.json and calibrate fresh activation "
+                        "scales (the escape when its param fingerprint no "
+                        "longer matches the checkpoint)")
 
 
 def _load_init_weights(args, cfg: config_lib.Config):
@@ -264,11 +368,47 @@ def cmd_train(args) -> int:
                           init_state_dict=init_state_dict)
         if args.resume:
             trainer.maybe_resume()
-        trainer.fit()
+        if cfg.quant.qat:
+            qtree = _start_qat(cfg, trainer, train_recs)
+        state = trainer.fit()
+        if cfg.quant.qat:
+            _save_qat_scales(cfg, trainer, state, qtree)
     finally:
         train_loader.close()
         eval_loader.close()
     return 0
+
+
+def _start_qat(cfg: config_lib.Config, trainer, train_recs):
+    """Calibrate on the weights about to be fine-tuned (after init and
+    resume), switch the Trainer to fake-quant convs and save the scales
+    before `fit` (no binding yet: the final weights do not exist)."""
+    import os
+    from objectdetection_ssd_torch.infer import quant as quant_lib
+    qcfg = cfg.replace(quant=dataclasses.replace(cfg.quant, int8=True))
+    qtree = _build_quant(qcfg, trainer.state.model.state_dict(),
+                         trainer.device, records=train_recs)
+    trainer.enable_qat(qtree)
+    os.makedirs(cfg.train.checkpoint_dir, exist_ok=True)
+    quant_lib.save_scales(qtree, os.path.join(cfg.train.checkpoint_dir,
+                                              quant_lib.SCALES_FILENAME))
+    return qtree
+
+
+def _save_qat_scales(cfg: config_lib.Config, trainer, state, qtree) -> None:
+    """Re-save the scales bound to the finished checkpoint: the raw
+    weights' fingerprint and, with an EMA, the averaged weights' (which
+    ``--use-ema`` serves), and the epoch."""
+    import os
+    from objectdetection_ssd_torch.infer import quant as quant_lib
+    weights = state.model.state_dict()
+    fps = [quant_lib.param_fingerprint(weights)]
+    if state.ema is not None:
+        fps.append(quant_lib.param_fingerprint({**weights, **state.ema}))
+    quant_lib.save_scales(
+        qtree, os.path.join(cfg.train.checkpoint_dir,
+                            quant_lib.SCALES_FILENAME),
+        fingerprint=fps, epoch=trainer.ckpt.latest_epoch())
 
 
 def cmd_eval(args) -> int:
@@ -279,12 +419,13 @@ def cmd_eval(args) -> int:
     records = train_recs if args.split == "train" else val_recs
     weights = _restore_params(cfg, args.allow_random_init,
                               use_ema=args.use_ema)
+    quant = _build_quant(cfg, weights, args.device, records=train_recs)
     # Per-split cache suffix: the cache is keyed on the split's path list.
     cache = (cfg.data.image_cache + f".{args.split}"
              if cfg.data.image_cache else None)
     out = evaluate_records(cfg, weights, records, iou_sweep=args.iou_sweep,
                            pr_curves_path=args.pr_curves, image_cache=cache,
-                           device=args.device)
+                           device=args.device, quant=quant)
     aps, mean_ap = out[0], out[1]
     for name, ap in aps.items():
         print(f"{name:>12s}  AP = {ap:.4f}")
@@ -304,7 +445,8 @@ def cmd_detect(args) -> int:
     cfg = build_config(args)
     weights = _restore_params(cfg, args.allow_random_init,
                               use_ema=args.use_ema)
-    det = Detector(cfg, weights, device=args.device)
+    quant = _build_quant(cfg, weights, args.device, image_paths=args.images)
+    det = Detector(cfg, weights, device=args.device, quant=quant)
     results = det.detect_images(args.images)
     for path, res in zip(args.images, results):
         print(path)
@@ -374,6 +516,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                          help="initialize ALL SSD300 weights from a "
                               "reference torch checkpoint "
                               "(train_function.py:114-120 format)")
+    p_train.add_argument("--qat", action="store_true",
+                         help="quantization-aware fine-tuning: calibrate "
+                              "int8 activation scales on the current "
+                              "weights, then train through fake-quant "
+                              "convs (straight-through estimator); the "
+                              "scales persist as quant_scales.json next to "
+                              "the checkpoint, bound to its weights, and "
+                              "--int8 serves them")
     p_train.set_defaults(fn=cmd_train)
 
     p_eval = sub.add_parser("eval", help="evaluate mAP on the val split")
@@ -396,6 +546,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p_eval.add_argument("--use-ema", action="store_true",
                         help="read the EMA-averaged weights (requires an "
                              "EMA-enabled checkpoint)")
+    _int8_flags(p_eval)
     p_eval.set_defaults(fn=cmd_eval)
 
     p_det = sub.add_parser("detect", help="detect objects in images")
@@ -407,6 +558,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p_det.add_argument("--use-ema", action="store_true",
                        help="read the EMA-averaged weights (requires an "
                             "EMA-enabled checkpoint)")
+    _int8_flags(p_det)
     p_det.set_defaults(fn=cmd_detect)
 
     args = parser.parse_args(argv)

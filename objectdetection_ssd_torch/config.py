@@ -8,8 +8,7 @@ keeps its own copy because it must not import the JAX package (whose
 (``nms_unrolled``, ``approx_recall_target``) are left out: they have no
 counterpart here.  Fields of features not ported yet are left out too:
 the mesh and pipeline stages (``mesh_shape``, ``pp_*``),
-``donate_state``, ``tensorboard_dir``, and the quantization and doctor
-configs.
+``donate_state``, ``tensorboard_dir`` and the doctor config.
 """
 
 from __future__ import annotations
@@ -228,6 +227,31 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """Post-training int8 quantization for serving, and quantization-aware
+    training (`infer/quant.py`).  Checkpoints stay f32: the same weights
+    drive the float and the int8 model."""
+
+    int8: bool = False
+    # Images drawn from the train split (eval) or the input images (detect)
+    # for the activation-range calibration; ranges only widen with more.
+    calib_images: int = 64
+    # Keep the loc/conf heads in float (the usual PTQ recipe); True
+    # quantizes them too.
+    quantize_heads: bool = False
+    # Each chained conv's epilogue emits int8 in the next conv's activation
+    # scale (`infer/quant.py:chain_scales`); bit-equal to the unchained
+    # graph, so on by default.
+    chain_requant: bool = True
+    # Ignore the checkpoint directory's saved quant_scales.json and
+    # calibrate afresh (the escape from its fingerprint binding).
+    recalibrate: bool = False
+    # `train --qat`: calibrate on the current weights, then train through
+    # the straight-through fake-quant convs.
+    qat: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     priors: PriorConfig = dataclasses.field(default_factory=PriorConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
@@ -237,6 +261,7 @@ class Config:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -102,7 +102,8 @@ def evaluate_records(config: Config,
                      iou_sweep: bool = False,
                      pr_curves_path: Optional[str] = None,
                      image_cache: Optional[str] = None,
-                     device: DeviceLike = None):
+                     device: DeviceLike = None,
+                     quant: Optional[Mapping] = None):
     """Returns (per-class AP, mAP) over ``records``.
 
     Ground truth as the reference protocol has it: difficult objects are
@@ -111,7 +112,8 @@ def evaluate_records(config: Config,
 
     ``detector``: reuse a Detector (its model takes ``state_dict`` when one
     is given); otherwise one is built on ``device`` (default ``cuda``) with
-    `exact_eval_postprocess`.
+    `exact_eval_postprocess` and the int8 scale tree ``quant``
+    (`infer/quant.py`; None: float).
 
     ``iou_sweep=True`` also scores the detections over the 0.50:0.05:0.95
     IoU ladder (`voc_map_sweep`) and returns
@@ -128,7 +130,7 @@ def evaluate_records(config: Config,
         detector = Detector(config, state_dict,
                             postprocess_config=exact_eval_postprocess(
                                 config.postprocess),
-                            device=device)
+                            device=device, quant=quant)
     elif state_dict is not None:
         detector.model.load_state_dict(state_dict, strict=True)
     bs = batch_size or config.data.batch_size

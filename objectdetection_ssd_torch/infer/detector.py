@@ -1,10 +1,11 @@
 """User-facing detection API: images -> final boxes, on the card.
 
 The port of `objectdetection_ssd_tpu/infer/detector.py` (`Detector`,
-`mirror_permutation`, `forward_for_postprocess`) without its mesh and int8
-options.  The model forward and `postprocess` run on one device (``cuda``
-unless the caller passes ``device="cpu"``); only the fixed-size detection
-tensors come back to the host, once per batch.
+`mirror_permutation`, `forward_for_postprocess`) without its mesh options.
+The model forward and `postprocess` run on one device (``cuda`` unless the
+caller passes ``device="cpu"``); only the fixed-size detection tensors come
+back to the host, once per batch.  With ``quant=`` (a scale tree of
+`infer/quant.py`) the quantized convs run int8 on kernel K3.
 Weights come in as a ``state_dict`` (e.g. `models.convert.from_flax_params`)
 or from a `train.checkpoint.CheckpointManager` directory
 (`Detector.from_checkpoint`).
@@ -131,12 +132,23 @@ class Detector:
 
     def __init__(self, config: Config, state_dict: Mapping[str, torch.Tensor],
                  postprocess_config: Optional[PostprocessConfig] = None,
-                 device: DeviceLike = None, priors: Optional[np.ndarray] = None):
+                 device: DeviceLike = None, priors: Optional[np.ndarray] = None,
+                 quant: Optional[Mapping] = None):
+        """``quant``: an int8 scale tree (`infer.quant.act_scales`, chained
+        or not): the convs it names run int8 on K3, the others float.  The
+        model then holds its weights in f32, as the JAX package quantizes
+        them from its f32 parameters, and casts the float convs' weights to
+        the compute dtype at use."""
+        from objectdetection_ssd_torch.infer.quant import attach_scales
         self.device = resolve_device(device)
         self.config = config
         self.pp_config = postprocess_config or config.postprocess
-        self.model = build_model(config.model, device=self.device)
+        self.quant = quant
+        self.model = build_model(config.model, device=self.device,
+                                 train=quant is not None).eval()
         self.model.load_state_dict(state_dict, strict=True)
+        if quant is not None:
+            attach_scales(self.model, quant)
         if priors is None:
             priors = priors_lib.priors_for_model(config.model, config.priors)
         self.priors = torch.tensor(np.asarray(priors), dtype=torch.float32,

@@ -6,12 +6,15 @@ Here the layers are torch's own, in NCHW (``channels_last`` memory on the
 card); what this module adds is the flax initialisers, flax's ``dtype=``
 casts (each conv computes in its input's dtype, casting its weight and
 bias at use), the routing of a conv's filter gradient through kernel K2,
-the L2Norm arithmetic, flax's BatchNorm and Dropout semantics (the ResNet-34
-family) and the NHWC head flatten.
+the int8 and straight-through (QAT) branches of a quantized conv (JAX
+`Int8Conv`, kernel K3), int8 max pooling, the L2Norm arithmetic, flax's
+BatchNorm and Dropout semantics (the ResNet-34 family) and the NHWC head
+flatten.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -19,11 +22,42 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from objectdetection_ssd_torch.ops import int8_conv as k3
 from objectdetection_ssd_torch.ops.dw_cuda import conv3x3p1
 
 # flax's truncated-normal stddev correction: the std of a unit normal cut to
 # [-2, 2] (`jax.nn.initializers.variance_scaling`).
 _TRUNC_STD = 0.87962566103423978
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvQuant:
+    """The quantization a conv runs with (`infer/quant.py:attach_scales`).
+
+    ``act_scale``: the calibrated activation scale ``s_a`` (f32 scalar
+    tensor on the conv's device, already ``max(s_a, 1e-12)``);
+    ``out_scale``: the next conv's ``s_a`` on a requant-chained edge, else
+    None; ``dtype``: the model's compute dtype, which the int8 branch
+    outputs whatever its input's dtype (an int8 input is already
+    quantized); ``straight_through``: the QAT branch instead of the int8
+    one."""
+
+    act_scale: torch.Tensor
+    out_scale: Optional[torch.Tensor]
+    dtype: torch.dtype
+    straight_through: bool = False
+
+
+def _ste_round(x: torch.Tensor) -> torch.Tensor:
+    """Round with a straight-through (identity) gradient (`layers.py:33`)."""
+    return x + (torch.round(x) - x).detach()
+
+
+def _ste_fake_quant(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``ste_round(clip(v / s, -127, 127)) * s``; the clip as max then min,
+    whose gradient at a tie is halved as `jnp.clip`'s is."""
+    lim = k3.scalar(k3.QMAX, v)
+    return _ste_round(torch.minimum(torch.maximum(v / s, -lim), lim)) * s
 
 
 class TorchConv(nn.Conv2d):
@@ -45,6 +79,19 @@ class TorchConv(nn.Conv2d):
     dilation-1 geometry takes the route; other geometry stays on the plain
     conv.  Either way the parameters are ``weight`` and ``bias``, so a
     ``state_dict`` loads into both.
+
+    ``quant`` (a `ConvQuant`, set by `infer/quant.py:attach_scales`, not a
+    parameter or buffer: the ``state_dict`` keeps its keys) selects the
+    JAX `Int8Conv` (`layers.py:39-138`) and wins over the K2 route:
+    * int8: weights quantized per output channel from the f32 weights,
+      once per weight version (an update in place, a load or a move
+      re-quantizes); the input quantized by ``act_scale`` unless it is
+      already int8 (a chained edge); the conv on kernel K3, whose epilogue
+      rescales by ``act_scale * s_w``, adds the bias and rounds to
+      ``dtype``, or requantizes to int8 by ``out_scale``;
+    * straight-through (QAT): both operands fake-quantized in f32 with the
+      scales held constant, an f32 conv, the bias, then ``dtype``;
+      ``out_scale`` is ignored.
     """
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
@@ -59,8 +106,40 @@ class TorchConv(nn.Conv2d):
             == (3, 1, 1, 1)
         super().__init__(in_features, features, kernel, stride=stride,
                          padding=padding, dilation=dilation, bias=use_bias)
+        self.quant: Optional[ConvQuant] = None
+        self._int8_weight = None     # (weight version key, w_q, s_w)
+
+    def int8_weight(self):
+        """(``w_q`` int8 (Cout, kh, kw, Cin), ``s_w`` f32 (Cout,)) of the
+        current weights, quantized once per weight version."""
+        w = self.weight
+        key = (w._version, w.data_ptr(), w.device, w.dtype)
+        if self._int8_weight is None or self._int8_weight[0] != key:
+            with torch.no_grad():
+                self._int8_weight = (key,) + k3.quantize_weight(w)
+        return self._int8_weight[1:]
+
+    def _quant_forward(self, x: torch.Tensor, q: ConvQuant) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.float()
+        geometry = (self.stride[0], self.padding[0], self.dilation[0])
+        if q.straight_through:
+            w = self.weight.float()
+            s_w = k3.weight_scale(w)[:, None, None, None]
+            y = F.conv2d(_ste_fake_quant(x.float(), q.act_scale),
+                         _ste_fake_quant(w, s_w), None, *geometry)
+            if bias is not None:
+                y = y + bias[:, None, None]
+            return y.to(q.dtype)
+        w_q, s_w = self.int8_weight()
+        x_q = (x if x.dtype == torch.int8
+               else k3.quantize_activation(x, q.act_scale))
+        return k3.int8_conv(x_q, w_q, q.act_scale * s_w,
+                            None if bias is None else bias.detach(),
+                            *geometry, q.dtype, q.out_scale)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant is not None:
+            return self._quant_forward(x, self.quant)
         weight = self.weight.to(x.dtype)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         if self.dw_route:
@@ -88,7 +167,15 @@ def max_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0,
              ceil_mode: bool = False) -> torch.Tensor:
     """Max pool with torch semantics: -inf padding, and ``ceil_mode``
     extends the grid at the bottom/right (reference pool3, `Model.py:137`).
-    The JAX counterpart pads explicitly to get the same windows."""
+    The JAX counterpart pads explicitly to get the same windows.
+
+    An int8 input (the requant-chained graph; the max commutes with the
+    monotone quantization) is pooled through f16, which holds every value
+    in [-127, 127] exactly: CUDA's max pool takes no int8.  Padding never
+    wins, as the JAX pool's -128 padding does not."""
+    if x.dtype == torch.int8:
+        return F.max_pool2d(x.half(), window, stride, padding=padding,
+                            ceil_mode=ceil_mode).to(torch.int8)
     return F.max_pool2d(x, window, stride, padding=padding,
                         ceil_mode=ceil_mode)
 

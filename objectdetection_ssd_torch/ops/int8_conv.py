@@ -1,0 +1,189 @@
+"""int8 convolution: the CUDA kernel `csrc/int8_conv.cu` (K3), its plain
+PyTorch version, and the weight and activation quantizers around it.
+
+The port of the int8 path of the JAX `Int8Conv`
+(`objectdetection_ssd_tpu/models/layers.py:114-138`), which XLA computes as
+an int8 x int8 -> int32 `conv_general_dilated`.  `int8_conv` takes an int8
+NCHW activation (``channels_last`` memory, i.e. NHWC bytes), int8 weights
+``(Cout, kh, kw, Cin)``, the per-channel f32 ``scale`` (``s_a * s_w``) and
+an optional f32 bias, and returns ``float(acc) * scale + bias`` rounded to
+``dtype`` (f32 or bf16), or, with ``out_scale``, requantized to int8:
+``clip(round(y / out_scale), -127, 127)`` with ``y`` rounded through
+``dtype`` first.  On a CUDA tensor it launches the kernel (and raises if
+that fails); on a CPU tensor it runs the plain version, `int8_conv_plain`.
+Nothing falls back from one to the other.
+
+Scales that divide are tensors on the data's device: on the card, PyTorch
+divides by a Python number or a CPU scalar as a multiply by its reciprocal,
+which is not the IEEE division the JAX package performs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from objectdetection_ssd_torch import cuda_build
+
+SOURCE = cuda_build.CSRC_DIR / "int8_conv.cu"
+QMAX = 127
+# Kernel launches since the last reset (the plain CPU path does not count).
+launches = 0
+_lib: Optional[ctypes.CDLL] = None
+# The kernel's epilogue modes by output dtype (and, for int8 output, by
+# the dtype y is rounded through first).
+_MODES = {torch.float32: 0, torch.bfloat16: 1}
+_INT8_MODES = {torch.float32: 2, torch.bfloat16: 3}
+
+
+def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a f32 scalar tensor on ``like``'s device (a fill, not a
+    copy from the host)."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
+def weight_scale(weight: torch.Tensor) -> torch.Tensor:
+    """``s_w = max(max|w[c]| / 127, 1e-12)`` per output channel of OIHW
+    weights, in f32 and without gradient (`layers.py:98-99`)."""
+    w = weight.detach().float()
+    return torch.clamp_min(w.abs().amax(dim=(1, 2, 3)) / scalar(QMAX, w),
+                           1e-12)
+
+
+def quantize_weight(weight: torch.Tensor) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """OIHW float weights -> (``w_q`` int8 (Cout, kh, kw, Cin) contiguous,
+    ``s_w`` f32 (Cout,)): ``w_q = clip(round(w / s_w), -127, 127)`` in f32
+    (`layers.py:115`)."""
+    w = weight.detach().float()
+    s_w = weight_scale(w)
+    w_q = torch.clamp(torch.round(w / s_w[:, None, None, None]), -QMAX, QMAX)
+    return w_q.to(torch.int8).permute(0, 2, 3, 1).contiguous(), s_w
+
+
+def quantize_activation(x: torch.Tensor, s_a: torch.Tensor) -> torch.Tensor:
+    """``clip(round(x / s_a), -127, 127)`` as int8, in f32 (round half to
+    even, as `jnp.round`); ``s_a`` a f32 scalar tensor on x's device."""
+    return torch.clamp(torch.round(x.float() / s_a), -QMAX, QMAX).to(
+        torch.int8)
+
+
+def int8_conv_plain(x_q: torch.Tensor, w_q: torch.Tensor,
+                    scale: torch.Tensor, bias: Optional[torch.Tensor],
+                    stride: int, padding: int, dilation: int,
+                    dtype: torch.dtype,
+                    out_scale: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """K3's function in plain PyTorch: the conv in f64 on the int8 values
+    (exact: every partial sum is an integer below 2^31), cast to int32, then
+    the same epilogue in f32 operations."""
+    acc = F.conv2d(x_q.double(), w_q.permute(0, 3, 1, 2).double(), None,
+                   stride, padding, dilation).to(torch.int32)
+    y = acc.float() * scale[:, None, None]
+    if bias is not None:
+        y = y + bias[:, None, None]
+    y = y.to(dtype)
+    return y if out_scale is None else quantize_activation(y, out_scale)
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Give ``lib.ssd_int8_conv`` its C signature; returns ``lib``."""
+    lib.ssd_int8_conv.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 14
+                                  + [ctypes.c_void_p])
+    lib.ssd_int8_conv.restype = ctypes.c_int
+    return lib
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source and flag set) and load the kernel library."""
+    global _lib
+    if _lib is None:
+        _lib = declare(cuda_build.load(SOURCE))
+    return _lib
+
+
+def out_size(size: int, kernel: int, stride: int, padding: int,
+             dilation: int) -> int:
+    return (size + 2 * padding - dilation * (kernel - 1) - 1) // stride + 1
+
+
+def _check(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+           bias: Optional[torch.Tensor], dtype: torch.dtype,
+           out_scale: Optional[torch.Tensor]) -> None:
+    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"x_q and w_q must be int8, got {x_q.dtype} and "
+                        f"{w_q.dtype}")
+    if x_q.dim() != 4 or w_q.dim() != 4 or x_q.shape[1] != w_q.shape[3]:
+        raise ValueError(f"x_q (N, Cin, H, W) {tuple(x_q.shape)} does not "
+                         f"match w_q (Cout, kh, kw, Cin) "
+                         f"{tuple(w_q.shape)}")
+    cout = w_q.shape[0]
+    for name, t in (("scale", scale), ("bias", bias)):
+        if t is not None and (t.dtype != torch.float32
+                              or tuple(t.shape) != (cout,)):
+            raise ValueError(f"{name} must be f32 ({cout},), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if out_scale is not None and (out_scale.dtype != torch.float32
+                                  or out_scale.numel() != 1):
+        raise ValueError("out_scale must be one f32 value")
+    if dtype not in _MODES:
+        raise ValueError(f"output dtype must be f32 or bf16, got {dtype}")
+    tensors = [x_q, w_q, scale] + [t for t in (bias, out_scale)
+                                   if t is not None]
+    if any(t.device != x_q.device for t in tensors):
+        raise ValueError("int8_conv's tensors are on different devices")
+    if w_q.shape[1] * w_q.shape[2] * w_q.shape[3] * QMAX * QMAX >= 2 ** 31:
+        raise ValueError("kh*kw*Cin too large for an exact int32 sum")
+
+
+def int8_conv(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+              bias: Optional[torch.Tensor], stride: int, padding: int,
+              dilation: int, dtype: torch.dtype,
+              out_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int8 conv with the fused rescale/bias/requantize epilogue.  ``x_q``
+    int8 (N, Cin, H, W), ``w_q`` int8 (Cout, kh, kw, Cin), ``scale`` and
+    ``bias`` f32 (Cout,), ``out_scale`` a f32 scalar tensor (>= 1e-12).
+    Returns (N, Cout, Ho, Wo) in ``dtype``, or int8 with ``out_scale``;
+    ``channels_last`` memory on the card.  CUDA tensors run K3, CPU tensors
+    the plain version."""
+    global launches
+    _check(x_q, w_q, scale, bias, dtype, out_scale)
+    device = x_q.device
+    if device.type == "cpu":
+        return int8_conv_plain(x_q, w_q, scale, bias, stride, padding,
+                               dilation, dtype, out_scale)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    n, cin, h, w = x_q.shape
+    cout, kh, kw, _ = w_q.shape
+    ho = out_size(h, kh, stride, padding, dilation)
+    wo = out_size(w, kw, stride, padding, dilation)
+    out_dtype = torch.int8 if out_scale is not None else dtype
+    out = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=device)
+    if out.numel() == 0:
+        return out.permute(0, 3, 1, 2)
+    x_q = x_q.contiguous(memory_format=torch.channels_last)
+    w_q = w_q.contiguous()
+    scale = scale.contiguous()
+    bias = None if bias is None else bias.contiguous()
+    mode = (_INT8_MODES if out_scale is not None else _MODES)[dtype]
+    vec = int(cin % 16 == 0 and x_q.data_ptr() % 16 == 0
+              and w_q.data_ptr() % 16 == 0)
+    lib = _lib or build()
+    args = (x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if out_scale is None else out_scale.data_ptr(),
+            out.data_ptr(), n, h, w, cin, cout, kh, kw, stride, padding,
+            dilation, ho, wo, mode, vec,
+            torch.cuda.current_stream(device).cuda_stream)
+    if device.index == torch.cuda.current_device():
+        err = lib.ssd_int8_conv(*args)
+    else:
+        with torch.cuda.device(device):
+            err = lib.ssd_int8_conv(*args)
+    cuda_build.check(lib, err, "ssd_int8_conv")
+    launches += 1
+    return out.permute(0, 3, 1, 2)

@@ -7,7 +7,9 @@ is the `data/pipeline.py:collate` contract: ``images`` uint8 (B, S, S, 3)
 or normalized float, ``boxes`` (B, M, 4) f32 xyxy, ``classes`` (B, M)
 int32, ``mask`` (B, M) bool, as numpy arrays or tensors; they are moved to
 the model's device.  Gradient accumulation and the EMA live in
-`train/state.py:TrainState`.  QAT's ``quant_ste`` is not ported yet.
+`train/state.py:TrainState`.  With ``quant_ste`` (a scale tree of
+`infer/quant.py`) the convs it names run the straight-through fake-quant
+branch for that step (quantization-aware training).
 
 The model is called as ``model(images, generator, remat)``, the forward
 signature of both registry models.  Dropout (the ResNet-34 family) draws
@@ -25,6 +27,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 
 from objectdetection_ssd_torch.config import LossConfig
+from objectdetection_ssd_torch.infer.quant import scales_attached
 from objectdetection_ssd_torch.losses.multibox import (MultiboxLoss,
                                                        multibox_loss)
 from objectdetection_ssd_torch.models.ssd import normalize_uint8
@@ -81,7 +84,8 @@ def _metrics(loss: MultiboxLoss) -> Dict[str, torch.Tensor]:
 def train_step(state: TrainState, batch: Mapping[str, object],
                priors: torch.Tensor,
                loss_config: LossConfig = LossConfig(),
-               ema_decay: float = 0.0, seed: int = 0, remat: bool = False
+               ema_decay: float = 0.0, seed: int = 0, remat: bool = False,
+               quant_ste: Optional[Mapping] = None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One SGD step (or micro-step under gradient accumulation); returns
     ``(state, metrics)``, the state updated in place.  The EMA of the
@@ -92,12 +96,16 @@ def train_step(state: TrainState, batch: Mapping[str, object],
 
     ``seed`` roots the dropout masks (`dropout_generator`).  ``remat``
     recomputes the VGG trunk's stage interiors in the backward
-    (`models/backbones.py:VGG16Trunk`); the ResNet-34 family ignores it."""
+    (`models/backbones.py:VGG16Trunk`); the ResNet-34 family ignores it.
+    ``quant_ste``: QAT's scale tree: the convs it names run the
+    straight-through fake-quant branch with the scales held constant,
+    through the backward too (remat recomputes the forward there)."""
     state.model.train()
     state.optimizer.zero_grad(set_to_none=True)
-    loss = _loss(state, batch, priors, loss_config,
-                 dropout_generator(state, seed), remat)
-    loss.total.backward()
+    with scales_attached(state.model, quant_ste, straight_through=True):
+        loss = _loss(state, batch, priors, loss_config,
+                     dropout_generator(state, seed), remat)
+        loss.total.backward()
     if state.apply_gradients() and ema_decay:
         state.update_ema(ema_decay)
     return state, _metrics(loss)
@@ -106,9 +114,12 @@ def train_step(state: TrainState, batch: Mapping[str, object],
 @torch.no_grad()
 def eval_step(state: TrainState, batch: Mapping[str, object],
               priors: torch.Tensor,
-              loss_config: LossConfig = LossConfig()
+              loss_config: LossConfig = LossConfig(),
+              quant_ste: Optional[Mapping] = None
               ) -> Dict[str, torch.Tensor]:
     """Loss-only eval step (the reference's 'test' phase,
-    `train_function.py:47-52`); the state is not changed."""
+    `train_function.py:47-52`), through QAT's fake-quant convs with
+    ``quant_ste``; the state is not changed."""
     state.model.eval()
-    return _metrics(_loss(state, batch, priors, loss_config))
+    with scales_attached(state.model, quant_ste, straight_through=True):
+        return _metrics(_loss(state, batch, priors, loss_config))

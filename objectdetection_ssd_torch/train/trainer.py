@@ -1,7 +1,7 @@
 """High-level Trainer: epochs, train/eval phases, checkpointing, resume —
 the port of `objectdetection_ssd_tpu/train/trainer.py:Trainer` for one
-device (the mesh, pipeline-parallel, QAT and TensorBoard branches are not
-ported).
+device (the mesh, pipeline-parallel and TensorBoard branches are not
+ported).  `enable_qat` turns on quantization-aware training.
 
 Per epoch: a train phase, then a loss-only eval ('test') phase over the
 held-out split, each phase's loss averaged over its images; a checkpoint
@@ -92,6 +92,17 @@ class Trainer:
         # Per phase, the last run's images, steps, wall seconds and the
         # seconds the loop waited on its input stream.
         self.phase_stats: Dict[str, Dict[str, float]] = {}
+        # QAT's scale tree on the device (`enable_qat`), or None.
+        self.quant_ste: Optional[Dict] = None
+
+    def enable_qat(self, qtree: Mapping) -> None:
+        """Train and evaluate from now on through the straight-through
+        fake-quant convs of ``qtree`` (`infer.quant.act_scales`), so that
+        the fine-tuned weights serve int8 with the same scales.  Calibrate
+        after any init or resume: the scales must describe the weights
+        being fine-tuned (`cli train --qat` keeps that order)."""
+        from objectdetection_ssd_torch.infer.quant import scales_to
+        self.quant_ste = scales_to(qtree, self.device)
 
     def maybe_resume(self) -> bool:
         """Resume from the latest checkpoint if one exists (reference
@@ -161,10 +172,11 @@ class Trainer:
                 self.state, metrics = loop_lib.train_step(
                     self.state, batch, self.priors, cfg.loss,
                     ema_decay=cfg.train.ema_decay, seed=cfg.train.seed,
-                    remat=cfg.train.remat)
+                    remat=cfg.train.remat, quant_ste=self.quant_ste)
             else:
                 metrics = loop_lib.eval_step(self.state, batch, self.priors,
-                                             cfg.loss)
+                                             cfg.loss,
+                                             quant_ste=self.quant_ste)
             # Metrics stay on the device; MetricsLogger reads them on its
             # log cadence and at the end of the phase.
             mlog.update(metrics, n)

@@ -37,7 +37,7 @@ def _parse(module, argv):
 
 # Field by field: what the port's config holds of each JAX config.
 _SECTIONS = ("data", "train", "optim", "model", "loss", "postprocess",
-             "priors")
+             "priors", "quant")
 
 CASES = [
     ["train"],
@@ -64,6 +64,10 @@ CASES = [
      "--soft-nms-sigma", "0.3", "--tta-flip"],
     ["detect", "a.jpg", "--backbone", "resnet34", "--tta-flip",
      "--nms-method", "soft_gaussian"],
+    ["eval", "--int8", "--int8-calib-images", "16", "--int8-quantize-heads",
+     "--no-int8-chain", "--recalibrate", "--bf16"],
+    ["detect", "a.jpg", "--int8", "--backbone", "resnet34"],
+    ["train", "--qat", "--ema-decay", "0.999", "--epochs", "2"],
 ]
 
 
@@ -85,7 +89,7 @@ def test_build_config_matches_jax(argv):
 def test_device_defaults_to_cuda_and_unported_flags_are_refused():
     assert _parse(cli, ["train"]).device == "cuda"
     assert _parse(cli, ["eval", "--device", "cpu"]).device == "cpu"
-    for argv in (["train", "--fsdp", "2"], ["eval", "--int8"],
+    for argv in (["train", "--fsdp", "2"], ["eval", "--tp", "2"],
                  ["detect", "x.jpg", "--draw"],
                  ["export", "--out-dir", "x"]):
         with pytest.raises(SystemExit):
@@ -182,6 +186,80 @@ def test_resnet34_train_eval_detect_end_to_end_on_cpu(tmp_path, monkeypatch,
     for line in lines[1:]:
         label, score = line.split()[:2]
         assert 0.2 <= float(score) <= 1.0 and label.isalpha()
+
+
+def test_int8_eval_and_detect_on_cpu(tmp_path, monkeypatch, capsys):
+    """`eval --int8` calibrates on the train split and `detect --int8` on
+    its own images (random SSD300 weights); `--no-int8-chain` detects
+    exactly what the chained graph does; `--int8-quantize-heads` adds the
+    12 heads to the 23 convs."""
+    monkeypatch.chdir(tmp_path)
+    torch.set_num_threads(4)
+    common = ["--voc-root", "VOCdevkit", "--checkpoint-dir", "ckpt",
+              "--device", "cpu", "--num-workers", "0", "--allow-random-init"]
+    assert cli.main(["eval", "--synthetic", "--int8", "--int8-calib-images",
+                     "4", "--batch-size", "4"] + common) == 0
+    out, err = capsys.readouterr()
+    assert "int8: calibrated 23 convs on 4 images" in err
+    assert out.strip().splitlines()[-1].strip().startswith("mAP = ")
+
+    image = os.path.join("VOCdevkit", "VOC2007", "JPEGImages", "000001.jpg")
+    outs = {}
+    for flags in ((), ("--no-int8-chain",), ("--int8-quantize-heads",)):
+        assert cli.main(["detect", image, "--int8", *flags] + common) == 0
+        outs[flags], err = capsys.readouterr()
+        convs = 35 if flags == ("--int8-quantize-heads",) else 23
+        assert f"int8: calibrated {convs} convs on 1 images" in err
+    assert outs[()] == outs[("--no-int8-chain",)]
+    assert outs[()].splitlines()[0] == image
+
+
+def test_qat_train_binds_scales_that_eval_and_detect_read(tmp_path,
+                                                          monkeypatch,
+                                                          capsys):
+    """`train --qat` writes quant_scales.json bound to the raw and EMA
+    weights of its checkpoint; `eval` / `detect --int8` serve those scales;
+    a checkpoint trained on without --qat makes them a hard error, and
+    `--recalibrate` calibrates afresh.  ResNet-34, which trains fastest
+    on the CPU."""
+    from objectdetection_ssd_torch.infer import quant as quant_lib
+    from objectdetection_ssd_torch.infer.detector import checkpoint_weights
+    monkeypatch.chdir(tmp_path)
+    torch.set_num_threads(4)
+    common = ["--voc-root", "VOCdevkit", "--checkpoint-dir", "ckpt",
+              "--device", "cpu", "--num-workers", "0", "--backbone",
+              "resnet34", "--ema-decay", "0.9"]
+    assert cli.main(["train", "--synthetic", "--epochs", "1",
+                     "--batch-size", "8", "--qat"] + common) == 0
+    path = os.path.join("ckpt", quant_lib.SCALES_FILENAME)
+    cfg = cli.build_config(_parse(cli, ["eval"] + common))
+    raw, _ = checkpoint_weights(cfg)
+    ema, _ = checkpoint_weights(cfg, use_ema=True)
+    meta = quant_lib.load_scales_meta(path)
+    assert meta["epoch"] == 0
+    assert meta["param_fingerprints"] == [quant_lib.param_fingerprint(raw),
+                                          quant_lib.param_fingerprint(ema)]
+    assert quant_lib.count_quantized(quant_lib.load_scales(path)) == 39
+    capsys.readouterr()
+
+    assert cli.main(["eval", "--int8", "--batch-size", "4"] + common) == 0
+    _, err = capsys.readouterr()
+    assert f"int8: using QAT-trained scales from {path} (39 convs)" in err
+    image = os.path.join("VOCdevkit", "VOC2007", "JPEGImages", "000001.jpg")
+    assert cli.main(["detect", image, "--int8", "--use-ema"] + common) == 0
+    _, err = capsys.readouterr()
+    assert "using QAT-trained scales" in err
+
+    assert cli.main(["train", "--epochs", "2", "--batch-size", "8",
+                     "--resume"] + common) == 0
+    with pytest.raises(SystemExit, match="--recalibrate"):
+        cli.main(["eval", "--int8"] + common)
+    capsys.readouterr()
+    assert cli.main(["eval", "--int8", "--recalibrate",
+                     "--int8-calib-images", "8", "--batch-size", "4"]
+                    + common) == 0
+    _, err = capsys.readouterr()
+    assert "int8: calibrated 39 convs on 8 images" in err
 
 
 def test_eval_without_checkpoint_exits_unless_random_init(tmp_path, capsys):

@@ -20,6 +20,7 @@ MODULES = (
     "objectdetection_ssd_torch.ops.boxes",
     "objectdetection_ssd_torch.ops.matching",
     "objectdetection_ssd_torch.ops.dw_cuda",
+    "objectdetection_ssd_torch.ops.int8_conv",
     "objectdetection_ssd_torch.losses.multibox",
     "objectdetection_ssd_torch.models.layers",
     "objectdetection_ssd_torch.models.backbones",
@@ -28,6 +29,7 @@ MODULES = (
     "objectdetection_ssd_torch.infer.nms_cuda",
     "objectdetection_ssd_torch.infer.postprocess",
     "objectdetection_ssd_torch.infer.detector",
+    "objectdetection_ssd_torch.infer.quant",
     "objectdetection_ssd_torch.data.pipeline",
     "objectdetection_ssd_torch.data.voc",
     "objectdetection_ssd_torch.data.augment",
@@ -121,23 +123,20 @@ def test_no_silent_cpu_fallback_without_cuda(monkeypatch):
 
 
 def test_unported_options_raise():
-    """What is still unported is refused, not silently ignored: int8 and
-    QAT, export and the mesh strategies have no flag, no config and no
-    module in the port."""
+    """What is still unported is refused, not silently ignored: export and
+    the mesh strategies have no flag, no config and no module in the
+    port."""
     import importlib
     import dataclasses
     from objectdetection_ssd_torch import cli, config
 
-    for argv in (["eval", "--int8"], ["train", "--qat"],
-                 ["export", "--out-dir", "x"], ["train", "--fsdp", "2"],
+    for argv in (["export", "--out-dir", "x"], ["train", "--fsdp", "2"],
                  ["train", "--pp", "2"]):
         with pytest.raises(SystemExit):
             cli.main(argv)
-    assert not hasattr(config.Config(), "quant")
     assert "mesh_shape" not in {f.name for f in dataclasses.fields(
         config.TrainConfig)}
-    for module in ("objectdetection_ssd_torch.infer.quant",
-                   "objectdetection_ssd_torch.infer.export",
+    for module in ("objectdetection_ssd_torch.infer.export",
                    "objectdetection_ssd_torch.parallel"):
         with pytest.raises(ModuleNotFoundError):
             importlib.import_module(module)
