@@ -13,6 +13,8 @@ from_checkpoint`) on a synthetic VOC fixture held in packed caches.
     python3 chip_smoke.py --k1-baseline OLD.cu   # also time other K1
                                                  # sources (repeatable) on
                                                  # the same inputs
+    python3 chip_smoke.py --k3-baseline OLD.cu   # the same for K3, through
+                                                 # the first K3's C entry
 
 Phases, one line each: device, build (each kernel's registers and
 spills; a spill fails), K1 vs plain, K2 vs plain, the serving slice,
@@ -31,12 +33,14 @@ steps (card vs CPU with dropout 0, dropout masks from the seed), the CLI
 `detect` hard and with TTA + Soft-NMS), a remat step against the plain
 one with the peak memory of each, and ResNet-34 serving, Soft-NMS, TTA,
 K1 and train-step timing.  Then int8: K3 bit-equal to its plain version
-at every SSD300 and ResNet-34 conv shape and ragged ones; int8 serving
+at every SSD300 and ResNet-34 conv shape, ragged ones that reach every
+instantiation of its plan, and requantize ties; int8 serving
 of both families calibrated on the card (K3 counted per forward, chained
 == unchained, card vs CPU, flip TTA); int8 serving at batch 256 beside
 bf16 and K3 per conv shape at batch 32 against its bound, cuDNN's bf16
-conv and `torch._int_mm`; QAT steps card vs CPU and `cli train --qat`
--> `eval` / `detect --int8` with the fingerprint binding enforced.
+conv, `torch._int_mm` and any `--k3-baseline`; QAT steps card vs CPU and
+`cli train --qat` -> `eval` / `detect --int8` with the fingerprint
+binding enforced.
 Then one JSON line with each kernel's
 numbers, the card's name and power limit as nvidia-smi gives them, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -48,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import itertools
 import json
@@ -598,7 +603,8 @@ def ptxas_rows(source) -> list:
 def short_name(function: str) -> str:
     """A mangled kernel name without its namespace and parameter list:
     ``dw_partial_kernelI13__nv_bfloat16Li1ELi8ELb1EE``."""
-    m = re.search(r"(?:dw|nms)_[a-z_]*kernel(?:I\w*?EE)?", function)
+    m = re.search(r"(?:dw|nms|int8_conv)_[a-z_]*kernel(?:I\w*?EE)?",
+                  function)
     return m.group(0) if m else function
 
 
@@ -1747,17 +1753,33 @@ def phase_resnet_train_timing(batch: int = TIMING_TRAIN_BATCH) -> dict:
 # K3 vs its plain version at every conv shape of SSD300 and ResNet-34 (the
 # heads included, as --int8-quantize-heads quantizes them) at this batch,
 # and at ragged shapes (N, Cin, H, W, Cout, kernel, stride, padding,
-# dilation): Cin 3, 8 and 48 (the gather path), Cout 24, 84, 126 and 189,
-# odd maps, dilation 4.
+# dilation): Cin 3, 5 and 8 (the rows path), Cout 24, 33, 63, 70, 84, 126,
+# 129 and 189, odd maps, dilation 2 and 4, K not a multiple of the K step
+# (48, 720 on vec), the 7x7/2 rows path beside the stem; together they
+# reach every instantiation of `ops/int8_conv.py:TILES`.
 INT8_CHECK_BATCH = 2
 INT8_RAGGED = ((2, 3, 37, 41, 126, 3, 2, 1, 1),
                (2, 16, 13, 9, 189, 3, 1, 1, 1),
                (3, 8, 13, 7, 24, 3, 2, 1, 1),
                (1, 64, 5, 7, 189, 1, 1, 0, 1),
-               (2, 48, 11, 11, 84, 3, 1, 4, 4))
-# Given to K3 one byte past a 16-byte boundary: the gather path although
+               (2, 48, 11, 11, 84, 3, 1, 4, 4),
+               (2, 32, 9, 11, 63, 3, 1, 1, 1),
+               (2, 48, 10, 12, 130, 1, 1, 0, 1),
+               (2, 80, 7, 9, 129, 3, 2, 1, 1),
+               (2, 5, 29, 31, 70, 7, 2, 3, 1),
+               (2, 3, 23, 27, 33, 3, 1, 2, 2))
+# Given to K3 one byte past a 16-byte boundary: the rows path although
 # Cin % 16 == 0.
-INT8_UNALIGNED = ((2, 64, 19, 23, 40, 3, 1, 1, 1),)
+INT8_UNALIGNED = ((2, 64, 19, 23, 40, 3, 1, 1, 1),
+                  (1, 32, 17, 15, 65, 3, 1, 4, 4))
+# Requantize ties: operands in {-1, 0, 1} and scale 0.5 make y a small
+# multiple of 0.5, so y / out_scale falls on half integers, exactly (out
+# scales 1 and 3) or within an ulp (0.3); K3's requantize takes a
+# multiply by 1 / out_scale except near such ties (`csrc/int8_conv.cu:
+# requantize`, `requantize_tie`).  One vec shape and one rows shape.
+INT8_TIE_SHAPES = ((2, 64, 9, 11, 70, 3, 1, 1, 1),
+                   (2, 3, 13, 15, 33, 3, 1, 1, 1))
+INT8_TIE_OUT_SCALES = (1.0, 3.0, 0.3)
 INT8_SERVE_BATCHES = (1, 8)
 INT8_CALIB_IMAGES = 16
 INT8_TIMING_BATCH = 32
@@ -1834,8 +1856,10 @@ def phase_int8_vs_plain(device, batch: int = INT8_CHECK_BATCH,
     conv shape of SSD300 and ResNet-34 (heads included) at ``batch``, the
     ``ragged`` shapes and the ``unaligned`` ones (from a misaligned
     buffer), each with f32 and bf16 output, int8 output (requantized
-    through f32 and through bf16), with and without bias.  Returns the
-    shape count and the largest |K3 - plain| (0 when bit-equal)."""
+    through f32 and through bf16), with and without bias; on the card,
+    fails unless the shapes reached every instantiation of K3's plan.
+    Returns the shape count, the largest |K3 - plain| (0 when bit-equal)
+    and the shapes per instantiation."""
     from objectdetection_ssd_torch.config import ModelConfig
     from objectdetection_ssd_torch.models.ssd import build_model
     from objectdetection_ssd_torch.ops import int8_conv as k3
@@ -1853,9 +1877,12 @@ def phase_int8_vs_plain(device, batch: int = INT8_CHECK_BATCH,
     shapes = ([(key, True) for key in sorted(keys) + list(ragged)]
               + [(key, False) for key in unaligned])
     worst, compared = 0.0, 0
+    plans = {name: 0 for name in k3.TILES}
     for (n, cin, h, w, cout, k, st, pad, dil), aligned in shapes:
         x_q, w_q, scale, bias = int8_operands(n, cin, h, w, cout, k, gen,
                                               device, aligned)
+        plans[k3.plan(n, h, w, cin, cout, k, k, st, pad, dil,
+                      aligned=x_q.data_ptr() % 16 == 0).name] += 1
         geo = (st, pad, dil)
         y = k3.int8_conv_plain(x_q, w_q, scale, bias, *geo, torch.float32)
         out_scale = torch.clamp_min(y.float().std() / 40, 1e-12).to(device)
@@ -1871,8 +1898,26 @@ def phase_int8_vs_plain(device, batch: int = INT8_CHECK_BATCH,
                 fail(f"K3 differs from its plain version by {err} at "
                      f"{(n, cin, h, w, cout, k, st, pad, dil)} {dtype} "
                      f"bias={b is not None} int8_out={o is not None}")
+    for n, cin, h, w, cout, k, st, pad, dil in INT8_TIE_SHAPES:
+        x_q = torch.randint(-1, 2, (n, h, w, cin), generator=gen,
+                            dtype=torch.int8).to(device).permute(0, 3, 1, 2)
+        w_q = torch.randint(-1, 2, (cout, k, k, cin), generator=gen,
+                            dtype=torch.int8).to(device)
+        scale = torch.full((cout,), 0.5, device=device)
+        for o, dtype in itertools.product(INT8_TIE_OUT_SCALES,
+                                          (torch.float32, torch.bfloat16)):
+            args = (x_q, w_q, scale, None, st, pad, dil, dtype,
+                    torch.tensor(o, device=device))
+            kern, plain = k3.int8_conv(*args), k3.int8_conv_plain(*args)
+            compared += 1
+            if not torch.equal(kern, plain):
+                fail(f"K3 differs from its plain version at the requantize "
+                     f"ties of {(n, cin, h, w, cout, k)}, out_scale {o}, "
+                     f"{dtype}")
+    if device.type == "cuda" and not all(plans.values()):
+        fail(f"K3's check reached only {plans}")
     return {"shapes": len(shapes), "compared": compared,
-            "max_abs_err": worst}
+            "max_abs_err": worst, "plans": plans}
 
 
 def calibrated_tree(model_config, state_dict, device, images,
@@ -2054,14 +2099,67 @@ def graph_ms(fn, reps: int = 10, replays: int = 5) -> float:
     return ms
 
 
-def k3_shape_timing(conv, call, gen) -> dict:
+def k3_library_launcher(source: Path):
+    """``fn(x_q, w_q, scale, bias, stride, padding, dilation, dtype,
+    out_scale) -> out``, as `int8_conv` on a CUDA tensor, launching
+    ``ssd_int8_conv`` of another K3 source through the first K3's C
+    signature (6 pointers; n, h, w, cin, cout, kh, kw, stride, pad, dil,
+    ho, wo, mode and its ``vec`` flag; the stream) on the current
+    stream."""
+    from objectdetection_ssd_torch import cuda_build
+    from objectdetection_ssd_torch.ops import int8_conv as k3
+    lib = cuda_build.load(source)
+    lib.ssd_int8_conv.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 14
+                                  + [ctypes.c_void_p])
+    lib.ssd_int8_conv.restype = ctypes.c_int
+
+    def run(x_q, w_q, scale, bias, stride, padding, dilation, dtype,
+            out_scale=None):
+        n, cin, h, w = x_q.shape
+        cout, kh, kw, _ = w_q.shape
+        ho = k3.out_size(h, kh, stride, padding, dilation)
+        wo = k3.out_size(w, kw, stride, padding, dilation)
+        int8_out = out_scale is not None
+        out = torch.empty((n, ho, wo, cout), device=x_q.device,
+                          dtype=torch.int8 if int8_out else dtype)
+        vec = int(cin % 16 == 0 and x_q.data_ptr() % 16 == 0
+                  and w_q.data_ptr() % 16 == 0)
+        err = lib.ssd_int8_conv(
+            x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if out_scale is None else out_scale.data_ptr(),
+            out.data_ptr(), n, h, w, cin, cout, kh, kw, stride, padding,
+            dilation, ho, wo,
+            (k3._INT8_MODES if int8_out else k3._MODES)[dtype], vec,
+            torch.cuda.current_stream().cuda_stream)
+        cuda_build.check(lib, err, f"ssd_int8_conv ({source.name})")
+        return out.permute(0, 3, 1, 2)
+    return run
+
+
+def k3_ptxas(rows: list, name: str) -> dict:
+    """The build log's row of K3's instantiation ``name`` (a key of
+    `int8_conv.TILES`)."""
+    from objectdetection_ssd_torch.ops import int8_conv as k3
+    path, bm, bn, wm, wn, stages = k3.TILES[name]
+    symbol = (f"int8_conv_kernelILi{bm}ELi{bn}ELi{wm}ELi{wn}ELi{stages}"
+              f"ELb{int(path == 'rows')}EE")
+    found = [r for r in rows if symbol in r["function"]]
+    if len(found) != 1:
+        fail(f"{len(found)} kernels named {symbol} in the build log")
+    return found[0]
+
+
+def k3_shape_timing(conv, call, gen, baselines=None) -> dict:
     """K3 at one quantized conv's batch-32 shape of the serving forward
     (its own int8 weights, scales and output mode, random int8 input):
     bit-equal to the plain version, then its device time per launch
     (`graph_ms`) and CUDA-event time per direct call (host time between
     launches included), the bound, the plain version, and, each by
     `graph_ms`, cuDNN's bf16 conv of the same shape and `torch._int_mm`
-    on the int8 im2col matrix of the same GEMM."""
+    on the int8 im2col matrix of the same GEMM.  Each of ``baselines``
+    (name -> `k3_library_launcher`) must give K3's bits; it is timed in
+    turns with K3 (K3, baseline, K3, baseline; the better of each pair)."""
     import torch.nn.functional as F
     from objectdetection_ssd_torch.ops import int8_conv as k3
     n, cin, h, w = call["shape"]
@@ -2088,8 +2186,22 @@ def k3_shape_timing(conv, call, gen) -> dict:
     t_ops, t_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     run = lambda: k3.int8_conv(*args)                       # noqa: E731
     dev_ms = graph_ms(run)
+    plan = k3.plan(n, h, w, cin, cout, k, k, st, pad, dil,
+                   aligned=x_q.data_ptr() % 16 == 0
+                   and w_q.data_ptr() % 16 == 0)
+    base = {}
+    for name, fn in (baselines or {}).items():
+        if not torch.equal(fn(*args), kern):
+            fail(f"K3 baseline {name} differs from K3 at {call['conv']}")
+        base[name] = graph_ms(lambda: fn(*args))
+    if base:
+        dev_ms = min(dev_ms, graph_ms(run))
+        for name, fn in baselines.items():
+            base[name] = min(base[name], graph_ms(lambda: fn(*args)))
     row = {"conv": call["conv"], "shape": [n, cin, h, w, cout, k, st, pad,
                                            dil],
+           "path": plan.path, "tile": plan.name, "smem": plan.smem,
+           "patch": [plan.tile_h, plan.tile_w], "baselines": base,
            "out": "int8" if q.out_scale is not None else str(q.dtype)[6:],
            "ms": dev_ms, "host_ms": cuda_ms(run, iters=20),
            "bound_ms": max(t_ops, t_bytes),
@@ -2125,11 +2237,12 @@ def k3_shape_timing(conv, call, gen) -> dict:
     return row
 
 
-def phase_int8_timing(state_dict, resnet_state_dict) -> dict:
+def phase_int8_timing(state_dict, resnet_state_dict, k3_baselines=None
+                      ) -> dict:
     """int8 serving at batch 256 bf16: SSD300 chained and unchained beside
     bf16 serving in the same run (in turns, twice), their forwards; K3
-    per SSD300 quantized conv at batch 32 (`k3_shape_timing`); ResNet-34
-    int8 serving beside bf16."""
+    per SSD300 quantized conv at batch 32 (`k3_shape_timing`, with the
+    ``k3_baselines`` beside it); ResNet-34 int8 serving beside bf16."""
     from objectdetection_ssd_torch.config import Config, ModelConfig
     from objectdetection_ssd_torch.infer import quant
     from objectdetection_ssd_torch.infer.detector import Detector
@@ -2178,7 +2291,7 @@ def phase_int8_timing(state_dict, resnet_state_dict) -> dict:
             out["k3"] = []
             for c in calls:
                 out["k3"].append(k3_shape_timing(
-                    det.model.get_submodule(c["conv"]), c, g))
+                    det.model.get_submodule(c["conv"]), c, g, k3_baselines))
                 torch.cuda.empty_cache()
             del det
     return out
@@ -2356,6 +2469,12 @@ def main(argv=None) -> int:
                         help="another K1 source with the same C interface, "
                              "timed beside the repo's K1 on the same inputs "
                              "(repeatable)")
+    parser.add_argument("--k3-baseline", type=Path, action="append",
+                        default=[],
+                        help="another K3 source with the first K3's C "
+                             "interface (ssd_int8_conv with a vec flag), "
+                             "timed beside the repo's K3 at each SSD300 "
+                             "conv shape on the same inputs (repeatable)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -2380,6 +2499,8 @@ def main(argv=None) -> int:
                "K3": int8_conv.SOURCE}
     for path in args.k1_baseline:
         sources[f"K1 baseline {path.stem}"] = path.resolve()
+    for path in args.k3_baseline:
+        sources[f"K3 baseline {path.stem}"] = path.resolve()
     t0 = time.perf_counter()
     cuda_build.compile_sources(sources.values())
     nms_cuda.build()
@@ -2388,6 +2509,8 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     k1_baselines = {path.stem: k1_library_launcher(path.resolve())
                     for path in args.k1_baseline}
+    k3_baselines = {path.stem: k3_library_launcher(path.resolve())
+                    for path in args.k3_baseline}
     for kid, src in sources.items():
         rows = ptxas_rows(src)
         print(f"build: {kid} {src.name} (-Xptxas=-v): " + "; ".join(
@@ -2398,6 +2521,12 @@ def main(argv=None) -> int:
                    if r["spill_stores"] or r["spill_loads"]]
         if not rows or spilled:
             fail(f"{kid}: kernels that spill registers: {spilled}")
+    k3_ptx = ptxas_rows(int8_conv.SOURCE)
+    for name in int8_conv.TILES:
+        r = k3_ptxas(k3_ptx, name)
+        print(f"build: K3 {name} ({short_name(r['function'])}): "
+              f"{r['registers']} registers, {r['spill_stores']}/"
+              f"{r['spill_loads']} bytes spilled")
     k2_rows = ptxas_rows(dw_cuda.SOURCE)
     for n, h, w, cin, cout in DW_SHAPES + dw_shapes(TIMING_TRAIN_BATCH):
         for dtype, aligned in itertools.product(DW_TOL, (True, False)):
@@ -2659,7 +2788,8 @@ def main(argv=None) -> int:
           f"{iv['shapes']} shapes (every SSD300 and ResNet-34 conv at batch "
           f"{INT8_CHECK_BATCH}, heads included, ragged and unaligned ones), "
           f"{iv['compared']} comparisons: f32 / bf16 / int8 output, with "
-          f"and without bias (max_abs_err {iv['max_abs_err']})")
+          f"and without bias (max_abs_err {iv['max_abs_err']}); shapes per "
+          f"instantiation {iv['plans']}")
     isl = phase_int8_slice(device, sd, rsd)
     a, b = isl["ssd300"], isl["resnet34"]
     print(f"int8 slice: SSD300 calibrated on the card over "
@@ -2678,7 +2808,7 @@ def main(argv=None) -> int:
           f"{b['card_vs_cpu_rel']:.3e} of scale, {b['noise_ratio']:.3f} of "
           f"the CPU's int8-vs-float difference (limit "
           f"{INT8_NOISE_RATIO}), correlation {b['corr']:.6f}")
-    it = phase_int8_timing(sd, rsd)
+    it = phase_int8_timing(sd, rsd, k3_baselines)
     for family in ("ssd300", "resnet34"):
         print(f"int8 timing: {family} batch {TIMING_BATCH} ({smi}), best "
               f"of 3 windows of 10 chained steps, in turns twice: " +
@@ -2690,10 +2820,16 @@ def main(argv=None) -> int:
     for r in it["k3"]:
         lib = ("null" if r["library_ms"] is None
                else f"{r['library_ms'] * 1e3:.1f} us")
+        r["registers"] = k3_ptxas(k3_ptx, r["tile"])["registers"]
+        patch = (f", patch {r['patch'][0]}x{r['patch'][1]}"
+                 if r["path"] == "rows" else "")
+        base = "".join(f"; baseline {k} {v * 1e3:.1f} us"
+                       for k, v in r["baselines"].items())
         print(f"int8 timing: K3 {r['conv']} {r['shape']} -> {r['out']} "
-              f"({smi}): device {r['ms'] * 1e3:.1f} us per launch (CUDA "
-              f"graph, {r['tops']:.1f} TOPS), {r['host_ms'] * 1e3:.1f} us per "
-              f"direct call (CUDA events); "
+              f"({smi}): {r['tile']}{patch}, {r['smem']} B shared, "
+              f"{r['registers']} registers: device {r['ms'] * 1e3:.1f} us "
+              f"per launch (CUDA graph, {r['tops']:.1f} TOPS){base}, "
+              f"{r['host_ms'] * 1e3:.1f} us per direct call (CUDA events); "
               f"bound {r['bound_ms'] * 1e3:.1f} us by {r['bound_by']}; "
               f"plain {r['plain_ms'] * 1e3:.1f} us; cuDNN bf16 conv "
               f"{r['cudnn_bf16_ms'] * 1e3:.1f} us; {r['library']}: {lib}")
@@ -2702,7 +2838,12 @@ def main(argv=None) -> int:
           f"batch-{INT8_TIMING_BATCH} SSD300 forward: device "
           f"{sum(r['ms'] for r in k3_rows):.3f} ms, bound "
           f"{sum(r['bound_ms'] for r in k3_rows):.3f} ms, cuDNN bf16 "
-          f"{sum(r['cudnn_bf16_ms'] for r in k3_rows):.3f} ms")
+          f"{sum(r['cudnn_bf16_ms'] for r in k3_rows):.3f} ms, "
+          f"torch._int_mm "
+          f"{sum(r['library_ms'] or 0.0 for r in k3_rows):.3f} ms" + "".join(
+              f", baseline {name} "
+              f"{sum(r['baselines'][name] for r in k3_rows):.3f} ms"
+              for name in k3_baselines))
     qa = phase_qat(device)
     print(f"qat: {TRAIN_STEPS} f32 train_steps (quant_ste, TF32 off) batch "
           f"{TRAIN_BATCH}: losses {[round(x, 6) for x in qa['losses']]}; " +
@@ -2799,9 +2940,14 @@ def main(argv=None) -> int:
         "bound_by": "operations" if k3_ops >= k3_bytes else "bytes",
         "library_ms": (None if any(r["library_ms"] is None for r in k3_rows)
                        else sum(r["library_ms"] for r in k3_rows)),
-        "per_shape": [{key: r[key] for key in (
-            "conv", "shape", "out", "ms", "host_ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "cudnn_bf16_ms")}
+        "baseline_ms": ({name: sum(r["baselines"][name] for r in k3_rows)
+                         for name in k3_baselines} or None),
+        "per_shape": [dict({key: r[key] for key in (
+            "conv", "shape", "out", "path", "tile", "patch", "smem",
+            "registers", "ms", "host_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "cudnn_bf16_ms")},
+            baseline_ms=(next(iter(r["baselines"].values()))
+                         if r["baselines"] else None))
             for r in k3_rows],
     }]}))
     print(smi)

@@ -11,7 +11,11 @@ an optional f32 bias, and returns ``float(acc) * scale + bias`` rounded to
 ``clip(round(y / out_scale), -127, 127)`` with ``y`` rounded through
 ``dtype`` first.  On a CUDA tensor it launches the kernel (and raises if
 that fails); on a CPU tensor it runs the plain version, `int8_conv_plain`.
-Nothing falls back from one to the other.
+Nothing falls back from one to the other.  `plan` picks the kernel's path
+(``vec``: 16-byte copies, for aligned tensors with Cin % 16 == 0;
+``rows``: staged input rows, for the rest), its instantiation (block and
+warp tiles, pipeline stages), the rows path's output tile and the dynamic
+shared bytes; `row_table` is the rows path's k -> offset table.
 
 Scales that divide are tensors on the data's device: on the card, PyTorch
 divides by a Python number or a CPU scalar as a multiply by its reciprocal,
@@ -21,8 +25,11 @@ which is not the IEEE division the JAX package performs.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -37,6 +44,44 @@ _lib: Optional[ctypes.CDLL] = None
 # the dtype y is rounded through first).
 _MODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8_MODES = {torch.float32: 2, torch.bfloat16: 3}
+# The kernel's instantiations (csrc/int8_conv.cu `K3_TILES`): path, block
+# tile BM x BN, warp tile WM x WN, pipeline stages.  `vec` takes a 128 x
+# 128 block, or 256 x 64 where Cout <= 64 (so that no N tile is half
+# empty); `rows` takes 256 x 64.
+TILES = {"vec_128x128": ("vec", 128, 128, 64, 32, 4),
+         "vec_256x64": ("vec", 256, 64, 64, 32, 4),
+         "rows_256x64": ("rows", 256, 64, 64, 32, 2)}
+PATH_IDS = {"vec": 0, "rows": 1}
+# Bytes of K per pipeline step, and of padding per shared-memory row.
+BK = {"vec": 64, "rows": 32}
+ROW_PAD = 16
+# Dynamic shared memory one block may use on the H100 (227 KB).
+MAX_SMEM = 232448
+# The rows path's k -> offset tables on the card, by (geometry, pitch,
+# device).
+_tables: Dict[tuple, torch.Tensor] = {}
+
+
+class Plan(NamedTuple):
+    """How K3 runs one call (see `plan`); `ssd_int8_conv` launches exactly
+    this instantiation and rejects a plan that does not fit the tensors."""
+    name: str          # a key of TILES
+    path: str          # "vec" or "rows"
+    bm: int            # block tile: output pixels x channels
+    bn: int
+    wm: int            # warp tile
+    wn: int
+    stages: int        # shared-memory buffers of the K pipeline
+    threads: int
+    kp: int            # K padded to the K step
+    grid: Tuple[int, int]
+    smem: int          # dynamic shared bytes
+    tile_h: int        # rows: the block's output patch (else 0)
+    tile_w: int
+    staged_rows: int   # rows: the staged input window (else 0)
+    staged_cols: int
+    pitch: int         # rows: bytes per staged row (staged_cols * Cin,
+                       #   rounded up to a word)
 
 
 def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -89,9 +134,92 @@ def int8_conv_plain(x_q: torch.Tensor, w_q: torch.Tensor,
     return y if out_scale is None else quantize_activation(y, out_scale)
 
 
+def _rows_tile(ho: int, wo: int, cin: int, kh: int, kw: int, stride: int,
+               dil: int, bm: int, fixed: int, kp: int
+               ) -> Optional[Tuple[int, int, int, int, int, int]]:
+    """The rows path's output patch: (tile_h, tile_w, staged_rows,
+    staged_cols, pitch, smem) with tile_h * tile_w <= bm and the fewest
+    patches per image, then the fewest staged bytes; None if no patch's
+    window fits in shared memory."""
+    best = None
+    for tile_w in range(1, min(wo, bm) + 1):
+        cols = (tile_w - 1) * stride + (kw - 1) * dil + 1
+        pitch = -(-cols * cin // 4) * 4
+        for tile_h in range(min(bm // tile_w, ho), 0, -1):
+            rows = (tile_h - 1) * stride + (kh - 1) * dil + 1
+            smem = fixed + kp * 4 + rows * pitch
+            if smem <= MAX_SMEM:
+                break
+        else:
+            continue
+        key = (math.ceil(ho / tile_h) * math.ceil(wo / tile_w), rows * pitch)
+        if best is None or key < best[0]:
+            best = (key, (tile_h, tile_w, rows, cols, pitch, smem))
+    return None if best is None else best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int, h: int, w: int, cin: int, cout: int, kh: int, kw: int,
+         stride: int, pad: int, dil: int, aligned: bool = True) -> Plan:
+    """K3's launch plan for x ``(n, h, w, cin)`` and w ``(cout, kh, kw,
+    cin)``, ``aligned`` when both start on a 16-byte boundary: the ``vec``
+    path for aligned tensors with Cin % 16 == 0 (128 x 128 blocks, 256 x
+    64 where Cout <= 64), else the ``rows`` path with the output patch
+    that needs the fewest blocks.  Raises ValueError if no rows patch fits
+    in shared memory."""
+    ho = out_size(h, kh, stride, pad, dil)
+    wo = out_size(w, kw, stride, pad, dil)
+    k = kh * kw * cin
+    if aligned and cin % 16 == 0:
+        name = "vec_256x64" if cout <= 64 else "vec_128x128"
+    else:
+        name = "rows_256x64"
+    path, bm, bn, wm, wn, stages = TILES[name]
+    threads = (bm // wm) * (bn // wn) * 32
+    kp = -(-k // BK[path]) * BK[path]
+    fixed = stages * (bm + bn) * (BK[path] + ROW_PAD) + bm * 8
+    gy = -(-cout // bn)
+    if path == "vec":
+        return Plan(name, path, bm, bn, wm, wn, stages, threads, kp,
+                    (-(-n * ho * wo // bm), gy), fixed, 0, 0, 0, 0, 0)
+    tile = _rows_tile(ho, wo, cin, kh, kw, stride, dil, bm, fixed, kp)
+    if tile is None:
+        raise ValueError(f"K3's rows path: no output patch of a {kh}x{kw} "
+                         f"dilation-{dil} conv over {cin} channels fits in "
+                         f"{MAX_SMEM} bytes of shared memory")
+    tile_h, tile_w, rows, cols, pitch, smem = tile
+    tiles = math.ceil(ho / tile_h) * math.ceil(wo / tile_w)
+    return Plan(name, path, bm, bn, wm, wn, stages, threads, kp,
+                (n * tiles, gy), smem, tile_h, tile_w, rows, cols, pitch)
+
+
+def row_table(cin: int, kh: int, kw: int, dil: int, pitch: int,
+              kp: int) -> np.ndarray:
+    """The rows path's k -> offset table, int32 (kp,): for k = (r, s, ci)
+    < K, the offset of tap (r, s), channel ci in the staged rows from the
+    top-left byte of an output pixel's window (row offset r * dil, column
+    offset s * dil, then ci: ``r*dil*pitch + s*dil*cin + ci``); -1 for the
+    zero padding of K up to kp."""
+    r, s, ci = np.meshgrid(np.arange(kh), np.arange(kw), np.arange(cin),
+                           indexing="ij")
+    offs = (r * dil * pitch + s * dil * cin + ci).reshape(-1)
+    table = np.full(kp, -1, np.int32)
+    table[:offs.size] = offs
+    return table
+
+
+def _device_table(p: Plan, cin: int, kh: int, kw: int, dil: int,
+                  device: torch.device) -> torch.Tensor:
+    key = (cin, kh, kw, dil, p.pitch, p.kp, device)
+    if key not in _tables:
+        _tables[key] = torch.from_numpy(
+            row_table(cin, kh, kw, dil, p.pitch, p.kp)).to(device)
+    return _tables[key]
+
+
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Give ``lib.ssd_int8_conv`` its C signature; returns ``lib``."""
-    lib.ssd_int8_conv.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 14
+    lib.ssd_int8_conv.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 22
                                   + [ctypes.c_void_p])
     lib.ssd_int8_conv.restype = ctypes.c_int
     return lib
@@ -147,8 +275,9 @@ def int8_conv(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     int8 (N, Cin, H, W), ``w_q`` int8 (Cout, kh, kw, Cin), ``scale`` and
     ``bias`` f32 (Cout,), ``out_scale`` a f32 scalar tensor (>= 1e-12).
     Returns (N, Cout, Ho, Wo) in ``dtype``, or int8 with ``out_scale``;
-    ``channels_last`` memory on the card.  CUDA tensors run K3, CPU tensors
-    the plain version."""
+    ``channels_last`` memory on the card.  CUDA tensors run K3 as `plan`
+    says (ValueError where no rows-path patch fits in shared memory), CPU
+    tensors the plain version."""
     global launches
     _check(x_q, w_q, scale, bias, dtype, out_scale)
     device = x_q.device
@@ -170,20 +299,24 @@ def int8_conv(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     scale = scale.contiguous()
     bias = None if bias is None else bias.contiguous()
     mode = (_INT8_MODES if out_scale is not None else _MODES)[dtype]
-    vec = int(cin % 16 == 0 and x_q.data_ptr() % 16 == 0
-              and w_q.data_ptr() % 16 == 0)
+    p = plan(n, h, w, cin, cout, kh, kw, stride, padding, dilation,
+             aligned=x_q.data_ptr() % 16 == 0 and w_q.data_ptr() % 16 == 0)
+    table = (None if p.path == "vec"
+             else _device_table(p, cin, kh, kw, dilation, device))
     lib = _lib or build()
     args = (x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
             None if bias is None else bias.data_ptr(),
             None if out_scale is None else out_scale.data_ptr(),
+            None if table is None else table.data_ptr(),
             out.data_ptr(), n, h, w, cin, cout, kh, kw, stride, padding,
-            dilation, ho, wo, mode, vec,
+            dilation, ho, wo, mode, PATH_IDS[p.path], p.bm, p.bn, p.wm,
+            p.wn, p.stages, p.tile_h, p.tile_w, p.smem,
             torch.cuda.current_stream(device).cuda_stream)
     if device.index == torch.cuda.current_device():
         err = lib.ssd_int8_conv(*args)
     else:
         with torch.cuda.device(device):
             err = lib.ssd_int8_conv(*args)
-    cuda_build.check(lib, err, "ssd_int8_conv")
+    cuda_build.check(lib, err, f"ssd_int8_conv ({p.name})")
     launches += 1
     return out.permute(0, 3, 1, 2)
