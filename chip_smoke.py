@@ -40,7 +40,13 @@ of both families calibrated on the card (K3 counted per forward, chained
 bf16 and K3 per conv shape at batch 32 against its bound, cuDNN's bf16
 conv, `torch._int_mm` and any `--k3-baseline`; QAT steps card vs CPU and
 `cli train --qat` -> `eval` / `detect --int8` with the fingerprint
-binding enforced.
+binding enforced.  Then the serving artifact (`infer/export.py`): SSD300
+bf16, SSD300 int8 as `cli export --latency-profile` builds it and
+ResNet-34 with flip TTA, each exported on the card, loaded and served
+through `ExportedDetector` (== the live `detect_batch`, K1 once and K3 23
+times per chunk), reloaded, moved to the CPU, and timed against the live
+Detector with and without a CUDA graph; `torch.library.opcheck` of the
+two custom ops; the MicroBatcher over 16 concurrent requests.
 Then one JSON line with each kernel's
 numbers, the card's name and power limit as nvidia-smi gives them, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -1772,6 +1778,13 @@ INT8_RAGGED = ((2, 3, 37, 41, 126, 3, 2, 1, 1),
 # Cin % 16 == 0.
 INT8_UNALIGNED = ((2, 64, 19, 23, 40, 3, 1, 1, 1),
                   (1, 32, 17, 15, 65, 3, 1, 4, 4))
+# The L1 shapes (a 3x3 dilation-6 conv over ~1024 channels at 19 x 19):
+# no rows-path window fits in shared memory, so K3 runs on copies with
+# Cin zero-padded to a multiple of 16 (`ops/int8_conv.py:launch_plan`);
+# (shape, aligned).
+INT8_L1 = (((2, 1024, 19, 19, 1024, 3, 1, 6, 6), False),
+           ((2, 1000, 19, 19, 1024, 3, 1, 6, 6), True),
+           ((2, 1000, 19, 19, 1024, 3, 1, 6, 6), False))
 # Requantize ties: operands in {-1, 0, 1} and scale 0.5 make y a small
 # multiple of 0.5, so y / out_scale falls on half integers, exactly (out
 # scales 1 and 3) or within an ulp (0.3); K3's requantize takes a
@@ -1851,15 +1864,16 @@ def unaligned_nhwc(x: torch.Tensor, device) -> torch.Tensor:
 
 def phase_int8_vs_plain(device, batch: int = INT8_CHECK_BATCH,
                         ragged=INT8_RAGGED,
-                        unaligned=INT8_UNALIGNED) -> dict:
+                        unaligned=INT8_UNALIGNED, l1=INT8_L1) -> dict:
     """K3 against `int8_conv_plain` on the same inputs, bit-equal: every
     conv shape of SSD300 and ResNet-34 (heads included) at ``batch``, the
-    ``ragged`` shapes and the ``unaligned`` ones (from a misaligned
-    buffer), each with f32 and bf16 output, int8 output (requantized
-    through f32 and through bf16), with and without bias; on the card,
-    fails unless the shapes reached every instantiation of K3's plan.
-    Returns the shape count, the largest |K3 - plain| (0 when bit-equal)
-    and the shapes per instantiation."""
+    ``ragged`` shapes, the ``unaligned`` ones (from a misaligned buffer)
+    and the ``l1`` ones (Cin padded), each with f32 and bf16 output, int8
+    output (requantized through f32 and through bf16), with and without
+    bias; on the card, fails unless the shapes reached every
+    instantiation of K3's plan and the padding.  Returns the shape count,
+    the largest |K3 - plain| (0 when bit-equal), the shapes per
+    instantiation and the padded ones."""
     from objectdetection_ssd_torch.config import ModelConfig
     from objectdetection_ssd_torch.models.ssd import build_model
     from objectdetection_ssd_torch.ops import int8_conv as k3
@@ -1875,14 +1889,16 @@ def phase_int8_vs_plain(device, batch: int = INT8_CHECK_BATCH,
             keys.add((n, cin, h, w, c["cout"]) + c["geometry"])
         del model
     shapes = ([(key, True) for key in sorted(keys) + list(ragged)]
-              + [(key, False) for key in unaligned])
-    worst, compared = 0.0, 0
+              + [(key, False) for key in unaligned] + list(l1))
+    worst, compared, padded = 0.0, 0, 0
     plans = {name: 0 for name in k3.TILES}
     for (n, cin, h, w, cout, k, st, pad, dil), aligned in shapes:
         x_q, w_q, scale, bias = int8_operands(n, cin, h, w, cout, k, gen,
                                               device, aligned)
-        plans[k3.plan(n, h, w, cin, cout, k, k, st, pad, dil,
-                      aligned=x_q.data_ptr() % 16 == 0).name] += 1
+        p, pad_to = k3.launch_plan(n, h, w, cin, cout, k, k, st, pad, dil,
+                                   aligned=x_q.data_ptr() % 16 == 0)
+        plans[p.name] += 1
+        padded += pad_to is not None
         geo = (st, pad, dil)
         y = k3.int8_conv_plain(x_q, w_q, scale, bias, *geo, torch.float32)
         out_scale = torch.clamp_min(y.float().std() / 40, 1e-12).to(device)
@@ -1916,8 +1932,11 @@ def phase_int8_vs_plain(device, batch: int = INT8_CHECK_BATCH,
                      f"{dtype}")
     if device.type == "cuda" and not all(plans.values()):
         fail(f"K3's check reached only {plans}")
+    if padded != len(l1):
+        fail(f"{padded} shapes took the padded plan, not the {len(l1)} L1 "
+             f"shapes")
     return {"shapes": len(shapes), "compared": compared,
-            "max_abs_err": worst, "plans": plans}
+            "max_abs_err": worst, "plans": plans, "padded": padded}
 
 
 def calibrated_tree(model_config, state_dict, device, images,
@@ -2462,6 +2481,280 @@ def phase_qat(device, steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
     return out
 
 
+# ------------------------------------------------- the serving artifact
+
+EXPORT_BATCH = 8
+# Calls per timing window of an artifact and of the live Detector.
+EXPORT_CALLS = 20
+# An artifact moved to the CPU against the same artifact on the card: the
+# int8 convs are exact on both, but the float parts (the f32 heads, the
+# L2Norm, the ResNet-34 convs) sum in another order, ~1e-6 of a score.
+# Each valid row is matched to a valid row of the other side of the same
+# image and class with score and box within 1e-4 (the port against JAX,
+# tests/test_torch_detector.py); a row may lack a partner only where its
+# score lies within that of the score threshold or of the other side's
+# top-k cutoff, the two places where such a difference can drop a row.
+EXPORT_CPU_ATOL = 1e-4
+# Concurrent single-image requests the MicroBatcher answers.
+BATCHER_REQUESTS = 16
+
+
+def jax_gate(got, want, what: str) -> None:
+    """JAX's export gate (`tests/test_export.py:50-57`): valid and classes
+    equal, scores to rtol 1e-6, boxes to rtol 1e-5 / atol 1e-6."""
+    got, want = ([t.cpu() for t in d] for d in (got, want))
+    if not (torch.equal(got[3], want[3]) and torch.equal(got[2], want[2])
+            and torch.allclose(got[1], want[1], rtol=1e-6, atol=0.0)
+            and torch.allclose(got[0], want[0], rtol=1e-5, atol=1e-6)):
+        fail(f"{what}: the detections differ")
+
+
+def match_detections(got, want, threshold: float, atol: float,
+                     what: str) -> dict:
+    """Every valid row of ``got`` and of ``want`` matched one to one to a
+    valid row of the other (same image and class, score and box within
+    ``atol``), except rows whose score lies within ``atol`` of
+    ``threshold`` or of the other side's lowest score when that side is
+    full.  Returns the rows matched, the rows left and the largest
+    difference."""
+    got, want = ([t.cpu() for t in d] for d in (got, want))
+    top_k = got[3].shape[1]
+    matched, left, worst = 0, 0, 0.0
+    for i in range(got[3].shape[0]):
+        (ba, sa, ca), (bb, sb, cb) = (
+            (d[0][i][d[3][i]], d[1][i][d[3][i]], d[2][i][d[3][i]])
+            for d in (got, want))
+        used = torch.zeros(len(sb), dtype=torch.bool)
+        free = ([], [])
+        for j in range(len(sa)):
+            ds = (sb - sa[j]).abs()
+            db = (bb - ba[j]).abs().amax(-1)
+            ok = (cb == ca[j]) & ~used & (ds <= atol) & (db <= atol)
+            if not ok.any():
+                free[0].append(float(sa[j]))
+                continue
+            k = int(torch.where(ok, ds, float("inf")).argmin())
+            used[k] = True
+            matched += 1
+            worst = max(worst, float(ds[k]), float(db[k]))
+        free[1].extend(float(x) for x in sb[~used])
+        for scores, other in zip(free, (sb, sa)):
+            cut = threshold
+            if len(other) == top_k:
+                cut = max(cut, float(other.min()))
+            for score in scores:
+                if score > cut + atol:
+                    fail(f"{what}: image {i} has a row of score {score} "
+                         f"with no partner")
+                left += 1
+    return {"matched": matched, "left": left, "worst": worst}
+
+
+def artifact_timing(served, live, x) -> dict:
+    """images/s of the artifact (``served``) and of ``live.detect_batch``
+    on one chunk ``x`` on the card, in turns (live, artifact, artifact,
+    live), the best window of `EXPORT_CALLS` calls each (host clock,
+    ending in a synchronize), and the host time per call of each
+    (`host_ms_per_call`); then the loaded program captured in a CUDA
+    graph (its output held to the artifact's by JAX's gate), replayed
+    `EXPORT_CALLS` times between CUDA events."""
+    fns = {"live": live.detect_batch, "artifact": served}
+    best = {key: float("inf") for key in fns}
+    for key in ("live", "artifact", "artifact", "live"):
+        fns[key](x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(EXPORT_CALLS):
+            fns[key](x)
+        torch.cuda.synchronize()
+        best[key] = min(best[key],
+                        (time.perf_counter() - t0) / EXPORT_CALLS)
+    host = {key: host_ms_per_call(lambda: fn(x), EXPORT_CALLS)
+            for key, fn in fns.items()}
+    with torch.inference_mode():
+        static = x.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                served._call(static)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = served._call(static)
+        graph.replay()
+        jax_gate(captured, served(x),
+                 "the artifact replayed as a CUDA graph")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(EXPORT_CALLS):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        graph_ms_ = start.elapsed_time(end) / EXPORT_CALLS
+        del graph, captured
+    n = x.shape[0]
+    return {"live_images_per_s": n / best["live"],
+            "live_ms": best["live"] * 1e3, "live_host_ms": host["live"],
+            "artifact_images_per_s": n / best["artifact"],
+            "artifact_ms": best["artifact"] * 1e3,
+            "artifact_host_ms": host["artifact"],
+            "graph_images_per_s": n / (graph_ms_ * 1e-3),
+            "graph_ms": graph_ms_}
+
+
+def phase_export(device, state_dict, resnet_state_dict, root: str,
+                 batch: int = EXPORT_BATCH) -> dict:
+    """The serving artifact (`infer/export.py`), exported on ``device``
+    into ``root`` and served, through `ExportedDetector` (the main path):
+    SSD300 bf16 at ``batch`` (uint8 input); SSD300 int8 as `cli export
+    --latency-profile` builds it (per-class candidates 32, batch 1, f32
+    compute, scales chained from this phase's own calibration); ResNet-34
+    f32 with flip TTA at ``batch``.  Each call runs two chunks, and a
+    reload of the directory once more: its detections equal the live
+    `Detector.detect_batch` on the same chunks to JAX's gate, with K1
+    launched once and K3 23 times (int8 SSD300) per chunk.  On the card
+    also: `torch.library.opcheck` of both ops on CUDA tensors; the int8
+    and ResNet-34 artifacts moved to the CPU against the card
+    (`match_detections`); `MicroBatcher` over `MinimalExportedDetector`
+    answering `BATCHER_REQUESTS` concurrent requests with the rows of one
+    batched call; `artifact_timing` of each artifact; export and load
+    seconds."""
+    import os
+    import threading
+    from objectdetection_ssd_torch import serve_http
+    from objectdetection_ssd_torch.config import (Config, ModelConfig,
+                                                  PostprocessConfig)
+    from objectdetection_ssd_torch.infer import nms_cuda, quant
+    from objectdetection_ssd_torch.infer.detector import Detector
+    from objectdetection_ssd_torch.infer.export import (ExportedDetector,
+                                                        export_detector)
+    from objectdetection_ssd_torch.infer.postprocess import Detections
+    from objectdetection_ssd_torch.ops import int8_conv
+
+    on_card = device.type == "cuda"
+    gen = torch.Generator().manual_seed(SEED + 30)
+    ssd_images = torch.randint(0, 256, (2 * batch, 300, 300, 3),
+                               generator=gen, dtype=torch.uint8).to(device)
+    r34_images = torch.randint(0, 256, (2 * batch, RESNET_SIZE, RESNET_SIZE,
+                                        3), generator=gen,
+                               dtype=torch.uint8).to(device)
+    latency = Config(postprocess=PostprocessConfig(per_class_top_k=32))
+    qtree = quant.chain_scales(calibrated_tree(latency.model, state_dict,
+                                               device, ssd_images), "vgg16")
+    specs = {
+        "ssd300_bf16": (Config(model=ModelConfig(compute_dtype="bfloat16")),
+                        state_dict, None, batch, ssd_images, 0),
+        "ssd300_int8_latency": (latency, state_dict, qtree, 1,
+                                ssd_images[:2], SSD300_INT8_CONVS),
+        "resnet34_tta": (Config(model=resnet_config(),
+                                postprocess=PostprocessConfig(
+                                    tta_flip=True)),
+                         resnet_state_dict, None, batch, r34_images, 0),
+    }
+    out = {"k1": 0, "k3": 0, "artifacts": {}}
+    for name, (cfg, sd, tree, size, images, k3_per_chunk) in specs.items():
+        path = os.path.join(root, name)
+        t0 = time.perf_counter()
+        export_detector(cfg, sd, path, batch_size=size, quant=tree,
+                        device=device)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = ExportedDetector(path, device=device)
+        load_s = time.perf_counter() - t0
+        chunks = images.shape[0] // size
+        nms_cuda.launches = 0
+        int8_conv.launches = 0
+        got = served(images)
+        again = ExportedDetector(path, device=device)(images)
+        if on_card:
+            torch.cuda.synchronize()
+        k1, k3 = nms_cuda.launches, int8_conv.launches
+        if on_card and (k1, k3) != (2 * chunks,
+                                    2 * chunks * k3_per_chunk):
+            fail(f"export {name}: {k1} K1 and {k3} K3 launches in "
+                 f"{2 * chunks} chunks")
+        out["k1"] += k1
+        out["k3"] += k3
+        live = Detector(cfg, sd, device=device, quant=tree)
+        want = [live.detect_batch(images[i:i + size])
+                for i in range(0, images.shape[0], size)]
+        want = Detections(*(torch.cat(parts) for parts in zip(*want)))
+        jax_gate(got, want, f"export {name} against the live Detector")
+        jax_gate(again, got, f"export {name} reloaded")
+        if (got.boxes_xyxy.shape != (images.shape[0], 200, 4)
+                or not torch.isfinite(got.boxes_xyxy).all()
+                or int(got.valid.sum()) == 0):
+            fail(f"export {name}: malformed or empty detections")
+        ops = [str(node.target) for node in served.program.graph.nodes
+               if node.op == "call_function"]
+        row = {"export_s": export_s, "load_s": load_s, "batch": size,
+               "chunks": 2 * chunks, "k1": k1, "k3": k3,
+               "valid": int(got.valid.sum()), "meta": served.meta,
+               "ops": len(ops), "op_counts": {
+                   key: ops.count(key) for key in (
+                       "aten._assert_tensor_metadata.default",
+                       "aten.to.dtype", "ssd.nms_keep.default",
+                       "ssd.int8_conv.default")}}
+        if on_card and name != "ssd300_bf16":
+            cpu = ExportedDetector(path, device="cpu")(images.cpu())
+            row["cpu"] = match_detections(
+                got, cpu, cfg.postprocess.score_threshold, EXPORT_CPU_ATOL,
+                f"export {name} on the CPU against the card")
+        if on_card:
+            row["timing"] = artifact_timing(served, live, images[:size])
+        out["artifacts"][name] = row
+        del served, live
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # The batcher over the bf16 artifact: 16 requests from 16 threads.
+    det = serve_http.MinimalExportedDetector(
+        os.path.join(root, "ssd300_bf16"), device=device)
+    want = ExportedDetector(os.path.join(root, "ssd300_bf16"),
+                            device=device)(ssd_images)
+    rows = ssd_images.cpu().numpy()
+    batcher = serve_http.MicroBatcher(det, max_wait_ms=50.0)
+    results = [None] * BATCHER_REQUESTS
+
+    def request(i):
+        results[i] = batcher.infer_one(rows[i % len(rows)])
+
+    nms_cuda.launches = 0
+    try:
+        threads = [threading.Thread(target=request, args=(i,))
+                   for i in range(BATCHER_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            if t.is_alive():
+                fail("a MicroBatcher request hung")
+    finally:
+        batcher.close()
+    out["batcher_calls"] = nms_cuda.launches
+    out["k1"] += nms_cuda.launches
+    for i, r in enumerate(results):
+        if r is None:
+            fail(f"MicroBatcher request {i} got no answer")
+        j = i % len(rows)
+        jax_gate([torch.from_numpy(a)[None] for a in r],
+                 [t[j:j + 1] for t in want], f"MicroBatcher request {i}")
+
+    if on_card:
+        cand, valid = random_nms_sets(2, 20, 64, gen, device)
+        torch.library.opcheck(torch.ops.ssd.nms_keep.default,
+                              (cand, valid, THR))
+        x_q, w_q, scale, bias = int8_operands(2, 64, 19, 19, 128, 3, gen,
+                                              device)
+        for args in ((x_q, w_q, scale, bias, 1, 1, 1, torch.float32, None),
+                     (x_q, w_q, scale, None, 2, 1, 1, torch.bfloat16,
+                      torch.tensor(0.05, device=device))):
+            torch.library.opcheck(torch.ops.ssd.int8_conv.default, args)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k1-baseline", type=Path, action="append",
@@ -2786,7 +3079,8 @@ def main(argv=None) -> int:
     iv = phase_int8_vs_plain(device)
     print(f"int8 kernel: K3 bit-equal to its plain version at "
           f"{iv['shapes']} shapes (every SSD300 and ResNet-34 conv at batch "
-          f"{INT8_CHECK_BATCH}, heads included, ragged and unaligned ones), "
+          f"{INT8_CHECK_BATCH}, heads included, ragged and unaligned ones, "
+          f"{iv['padded']} L1 shapes with Cin padded), "
           f"{iv['compared']} comparisons: f32 / bf16 / int8 output, with "
           f"and without bias (max_abs_err {iv['max_abs_err']}); shapes per "
           f"instantiation {iv['plans']}")
@@ -2868,6 +3162,42 @@ def main(argv=None) -> int:
     k3_launches = (a["k3"] + b["k3"] + b["tta_k3"] + qa["eval"]["k3"]
                    + qa["detect"]["k3"])
 
+    # The serving artifact: export, load, serve, reload, the CPU, timing.
+    import tempfile
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as root:
+        ex = phase_export(device, sd, rsd, root)
+    for name, r in ex["artifacts"].items():
+        m, t = r["meta"], r["timing"]
+        cpu = ("" if "cpu" not in r else
+               f"; moved to the CPU: {r['cpu']['matched']} rows matched "
+               f"within {EXPORT_CPU_ATOL:.0e} (largest difference "
+               f"{r['cpu']['worst']:.3e}), {r['cpu']['left']} at a cutoff")
+        print(f"export: {name} (batch {r['batch']}, {m['input_dtype']} in, "
+              f"quantized_convs {m['quantized_convs']}, tta_flip "
+              f"{m['tta_flip']}): export {r['export_s']:.2f} s, load "
+              f"{r['load_s']:.2f} s; {r['chunks']} chunks (two, and a "
+              f"reload) == live detect_batch (JAX's gate), K1 {r['k1']}, "
+              f"K3 {r['k3']}, valid {r['valid']}{cpu}; the program: "
+              f"{r['ops']} operator calls, of them " + ", ".join(
+                  f"{v} {k}" for k, v in r["op_counts"].items()))
+        print(f"export timing: {name} batch {r['batch']} ({smi}), best of "
+              f"2 windows of {EXPORT_CALLS} calls in turns: artifact "
+              f"{t['artifact_images_per_s']:.1f} images/s "
+              f"({t['artifact_ms']:.3f} ms/call, host "
+              f"{t['artifact_host_ms']:.3f} ms/call), live Detector "
+              f"{t['live_images_per_s']:.1f} ({t['live_ms']:.3f} ms, host "
+              f"{t['live_host_ms']:.3f} ms); the "
+              f"loaded program as a CUDA graph {t['graph_images_per_s']:.1f} "
+              f"images/s ({t['graph_ms']:.3f} ms/replay)")
+    print(f"export: MicroBatcher over MinimalExportedDetector answered "
+          f"{BATCHER_REQUESTS} concurrent requests in {ex['batcher_calls']} "
+          f"program calls with the rows of one batched call; opcheck "
+          f"passed for ssd::nms_keep and ssd::int8_conv on CUDA tensors; "
+          f"the phase took {time.perf_counter() - t_phase:.1f} s")
+    k1_launches += ex["k1"]
+    k3_launches += ex["k3"]
+
     k2 = tt["k2"]
     k2_ops = sum(r["ops_ms"] for r in k2)
     k2_bytes = sum(r["bytes_ms"] for r in k2)
@@ -2883,8 +3213,8 @@ def main(argv=None) -> int:
         "source": "objectdetection_ssd_torch/csrc/nms.cu",
         "replaces": "objectdetection_ssd_tpu/infer/nms_pallas.py:139 "
                     "(git eb1d1b7)",
-        # Serving requests, cli eval's batches and the detect requests of
-        # SSD300 and ResNet-34.
+        # Serving requests, cli eval's batches, the detect requests of
+        # SSD300 and ResNet-34 and the serving artifacts' chunks.
         "launches": k1_launches,
         "max_abs_err": worst,
         # The serving shape; every shape's numbers are in per_shape.
@@ -2928,8 +3258,8 @@ def main(argv=None) -> int:
         "source": "objectdetection_ssd_torch/csrc/int8_conv.cu",
         "replaces": "objectdetection_ssd_tpu/models/layers.py:124 "
                     "(Int8Conv, XLA)",
-        # int8 serving requests (SSD300, ResNet-34, its flip TTA) and the
-        # QAT phase's cli eval and detect.
+        # int8 serving requests (SSD300, ResNet-34, its flip TTA), the
+        # QAT phase's cli eval and detect and the int8 artifact's chunks.
         "launches": k3_launches,
         "max_abs_err": iv["max_abs_err"],
         # The 23 launches of one batch-32 SSD300 int8 forward, summed.

@@ -1,4 +1,4 @@
-"""Command-line interface: train / eval / detect — the port of
+"""Command-line interface: train / eval / detect / export — the port of
 `objectdetection_ssd_tpu/cli.py` for the ported features, on one CUDA card
 (``--device cpu`` runs on the CPU).
 
@@ -6,13 +6,15 @@ Usage:
   python -m objectdetection_ssd_torch.cli train --voc-root VOCdevkit --epochs 5
   python -m objectdetection_ssd_torch.cli eval --voc-root VOCdevkit
   python -m objectdetection_ssd_torch.cli detect img1.jpg img2.jpg
+  python -m objectdetection_ssd_torch.cli export --out-dir artifact
 
 Both model families (``--backbone vgg16 | resnet34``), remat, Soft-NMS
 and flip TTA, the ``--init-*`` weight loaders, int8 serving (``eval`` /
-``detect --int8``, on kernel K3) and QAT (``train --qat``) are ported.
-Flags of features that are not ported yet (the mesh and pipeline
-strategies, export and ``--latency-profile``, TensorBoard, profiling,
-``--draw``, ``doctor``) are not accepted.
+``detect --int8``, on kernel K3), QAT (``train --qat``) and the serving
+artifact (``export``, ``--latency-profile``; `infer/export.py`) are
+ported.  Flags of features that are not ported yet (the mesh and pipeline
+strategies, TensorBoard, profiling, ``--draw``, ``doctor``) are not
+accepted.
 
 This module imports no torch at import time: the Loader's spawn workers
 import the ``__main__`` module, which is this one under ``python -m``.
@@ -123,6 +125,14 @@ def build_config(args) -> config_lib.Config:
     if getattr(args, "hnm_topk", None) is not None:
         cfg = cfg.replace(loss=dataclasses.replace(
             cfg.loss, hnm_topk=args.hnm_topk))
+    if getattr(args, "latency_profile", False):
+        # The JAX package's serving preset (`cli.py:142-152`): per-class
+        # candidates 32 and int8; `cmd_export` also defaults the artifact's
+        # batch to 1.  The flags below still override their pieces.
+        cfg = cfg.replace(
+            postprocess=dataclasses.replace(cfg.postprocess,
+                                            per_class_top_k=32),
+            quant=dataclasses.replace(cfg.quant, int8=True))
     pp_kw = {}
     if getattr(args, "nms_method", None) is not None:
         pp_kw["nms_method"] = args.nms_method
@@ -457,6 +467,34 @@ def cmd_detect(args) -> int:
     return 0
 
 
+def cmd_export(args) -> int:
+    import os
+    from objectdetection_ssd_torch.infer import quant as quant_lib
+    from objectdetection_ssd_torch.infer.export import export_detector
+    cfg = build_config(args)
+    weights = _restore_params(cfg, args.allow_random_init,
+                              use_ema=args.use_ema)
+    quant = None
+    if cfg.quant.int8:
+        saved = os.path.join(cfg.train.checkpoint_dir,
+                             quant_lib.SCALES_FILENAME)
+        if os.path.exists(saved) and not cfg.quant.recalibrate:
+            # A QAT checkpoint's scales: no dataset needed.
+            quant = _build_quant(cfg, weights, args.device)
+        else:
+            # Post-training calibration on the train split.
+            train_recs, _ = _load_split(cfg, args)
+            quant = _build_quant(cfg, weights, args.device,
+                                 records=train_recs)
+    batch_size = args.serve_batch_size
+    if batch_size is None:
+        batch_size = 1 if args.latency_profile else 8
+    out = export_detector(cfg, weights, args.out_dir, batch_size=batch_size,
+                          quant=quant, device=args.device)
+    print(f"exported serving artifact -> {out}")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(prog="objectdetection_ssd_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -560,6 +598,27 @@ def main(argv: Optional[List[str]] = None) -> int:
                             "EMA-enabled checkpoint)")
     _int8_flags(p_det)
     p_det.set_defaults(fn=cmd_detect)
+
+    p_exp = sub.add_parser(
+        "export", help="export the inference program (weights baked in) "
+                       "as a torch.export serving artifact")
+    _common_flags(p_exp)
+    p_exp.add_argument("--out-dir", required=True)
+    p_exp.add_argument("--serve-batch-size", type=int, default=None,
+                       help="artifact batch shape (default 8; "
+                            "--latency-profile defaults it to 1)")
+    p_exp.add_argument("--latency-profile", action="store_true",
+                       help="latency preset: per-class NMS candidates 32 "
+                            "+ int8 quantization + a batch-1 artifact; any "
+                            "explicit flag still overrides its piece")
+    p_exp.add_argument("--allow-random-init", action="store_true",
+                       help="export with random weights when no checkpoint "
+                            "is found (smoke tests)")
+    p_exp.add_argument("--use-ema", action="store_true",
+                       help="read the EMA-averaged weights (requires an "
+                            "EMA-enabled checkpoint)")
+    _int8_flags(p_exp)
+    p_exp.set_defaults(fn=cmd_export)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -9,6 +9,12 @@ raises if that fails); on a CPU tensor it runs the plain version,
 `greedy_nms_mask` over `pairwise_iou`.  Nothing falls back from one to the
 other.
 
+Both are the custom op ``ssd::nms_keep`` (registered at import): the CPU
+implementation is the plain version, the CUDA one the kernel, and a fake
+(shape) implementation lets `torch.export` record the op as one node, so
+an exported program launches the kernel where the eager `postprocess`
+does.
+
 The kernel is built by `cuda_build` (``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``) on its first use.
 """
@@ -94,14 +100,24 @@ def greedy_nms_keep(cand_boxes: torch.Tensor, valid: torch.Tensor,
     """(..., K, 4) f32 xyxy boxes sorted by score + (..., K) validity ->
     (..., K) keep mask.  CUDA tensors run the kernel, CPU tensors the plain
     version; both take the same inputs (1 <= K <= 256, contiguous)."""
-    global launches
     _check(cand_boxes, valid)
-    if cand_boxes.device.type == "cpu":
-        return greedy_nms_mask(pairwise_iou(cand_boxes, cand_boxes), valid,
-                               iou_threshold)
+    return torch.ops.ssd.nms_keep(cand_boxes, valid, float(iou_threshold))
+
+
+@torch.library.custom_op("ssd::nms_keep", mutates_args=(),
+                         device_types="cpu")
+def nms_keep(cand_boxes: torch.Tensor, valid: torch.Tensor,
+             iou_threshold: float) -> torch.Tensor:
+    """The op behind `greedy_nms_keep`; on the CPU, the plain version."""
+    return greedy_nms_mask(pairwise_iou(cand_boxes, cand_boxes), valid,
+                           iou_threshold)
+
+
+@nms_keep.register_kernel("cuda")
+def _nms_keep_cuda(cand_boxes: torch.Tensor, valid: torch.Tensor,
+                   iou_threshold: float) -> torch.Tensor:
+    global launches
     device = cand_boxes.device
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
     keep = torch.empty_like(valid)
     k = cand_boxes.shape[-2]
     num_sets = valid.numel() // k
@@ -109,7 +125,7 @@ def greedy_nms_keep(cand_boxes: torch.Tensor, valid: torch.Tensor,
         return keep
     lib = _lib or build()
     args = (cand_boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-            num_sets, k, float(iou_threshold),
+            num_sets, k, iou_threshold,
             torch.cuda.current_stream(device).cuda_stream)
     # The kernel launches on the current device: switch only when the
     # tensors live on another one.
@@ -121,3 +137,9 @@ def greedy_nms_keep(cand_boxes: torch.Tensor, valid: torch.Tensor,
     cuda_build.check(lib, err, "ssd_nms_keep")
     launches += 1
     return keep
+
+
+@nms_keep.register_fake
+def _nms_keep_fake(cand_boxes: torch.Tensor, valid: torch.Tensor,
+                   iou_threshold: float) -> torch.Tensor:
+    return torch.empty_like(valid)

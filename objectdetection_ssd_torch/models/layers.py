@@ -48,6 +48,12 @@ class ConvQuant:
     straight_through: bool = False
 
 
+def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype``: ``t`` itself where it already is, so that an
+    exported program (`infer/export.py`) records no operator for it."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
 def _ste_round(x: torch.Tensor) -> torch.Tensor:
     """Round with a straight-through (identity) gradient (`layers.py:33`)."""
     return x + (torch.round(x) - x).detach()
@@ -111,7 +117,17 @@ class TorchConv(nn.Conv2d):
 
     def int8_weight(self):
         """(``w_q`` int8 (Cout, kh, kw, Cin), ``s_w`` f32 (Cout,)) of the
-        current weights, quantized once per weight version."""
+        current weights, quantized once per weight version.
+
+        Under `torch.export` the weights are fake tensors without a
+        version to key on: the pair cached by an eager call made just
+        before tracing is returned, and enters the program as constants
+        (`infer/export.py:export_detector` makes that call)."""
+        if torch.compiler.is_exporting():
+            if self._int8_weight is None:
+                raise RuntimeError("quantize the int8 weights (an eager "
+                                   "int8_weight() call) before tracing")
+            return self._int8_weight[1:]
         w = self.weight
         key = (w._version, w.data_ptr(), w.device, w.dtype)
         if self._int8_weight is None or self._int8_weight[0] != key:
@@ -120,7 +136,7 @@ class TorchConv(nn.Conv2d):
         return self._int8_weight[1:]
 
     def _quant_forward(self, x: torch.Tensor, q: ConvQuant) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.float()
+        bias = None if self.bias is None else _cast(self.bias, torch.float32)
         geometry = (self.stride[0], self.padding[0], self.dilation[0])
         if q.straight_through:
             w = self.weight.float()
@@ -140,8 +156,8 @@ class TorchConv(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.quant is not None:
             return self._quant_forward(x, self.quant)
-        weight = self.weight.to(x.dtype)
-        bias = None if self.bias is None else self.bias.to(x.dtype)
+        weight = _cast(self.weight, x.dtype)
+        bias = None if self.bias is None else _cast(self.bias, x.dtype)
         if self.dw_route:
             # The bias is added outside the Function, as the JAX
             # `_DWPallasConv` adds it (`layers.py:160-162`).
@@ -203,7 +219,8 @@ class L2Norm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:     # (B, C, H, W)
         sumsq = torch.sum(torch.square(x.float()), dim=1, keepdim=True)
         norm = torch.sqrt(sumsq + self.epsilon)
-        return (x / norm.to(x.dtype)) * self.scale.to(x.dtype)[:, None, None]
+        return (x / _cast(norm, x.dtype)) * _cast(self.scale,
+                                                  x.dtype)[:, None, None]
 
 
 class BatchNorm(nn.Module):

@@ -11,11 +11,16 @@ an optional f32 bias, and returns ``float(acc) * scale + bias`` rounded to
 ``clip(round(y / out_scale), -127, 127)`` with ``y`` rounded through
 ``dtype`` first.  On a CUDA tensor it launches the kernel (and raises if
 that fails); on a CPU tensor it runs the plain version, `int8_conv_plain`.
-Nothing falls back from one to the other.  `plan` picks the kernel's path
-(``vec``: 16-byte copies, for aligned tensors with Cin % 16 == 0;
-``rows``: staged input rows, for the rest), its instantiation (block and
-warp tiles, pipeline stages), the rows path's output tile and the dynamic
-shared bytes; `row_table` is the rows path's k -> offset table.
+Nothing falls back from one to the other.  Both are the custom op
+``ssd::int8_conv`` (registered at import), with a fake (shape)
+implementation, so that `torch.export` records each call as one node and
+an exported program launches K3 where the eager model does.  `plan`
+picks the kernel's path (``vec``: 16-byte copies, for aligned tensors
+with Cin % 16 == 0; ``rows``: staged input rows, for the rest), its
+instantiation (block and warp tiles, pipeline stages), the rows path's
+output tile and the dynamic shared bytes; `row_table` is the rows path's
+k -> offset table; `launch_plan` adds the Cin that x and w are
+zero-padded to where no rows-path patch fits in shared memory.
 
 Scales that divide are tensors on the data's device: on the card, PyTorch
 divides by a Python number or a CPU scalar as a multiply by its reciprocal,
@@ -124,14 +129,19 @@ def int8_conv_plain(x_q: torch.Tensor, w_q: torch.Tensor,
                     ) -> torch.Tensor:
     """K3's function in plain PyTorch: the conv in f64 on the int8 values
     (exact: every partial sum is an integer below 2^31), cast to int32, then
-    the same epilogue in f32 operations."""
+    the same epilogue in f32 operations.  The result has the kernel's
+    layout: an NHWC buffer viewed NCHW (``channels_last`` strides)."""
     acc = F.conv2d(x_q.double(), w_q.permute(0, 3, 1, 2).double(), None,
                    stride, padding, dilation).to(torch.int32)
     y = acc.float() * scale[:, None, None]
     if bias is not None:
         y = y + bias[:, None, None]
     y = y.to(dtype)
-    return y if out_scale is None else quantize_activation(y, out_scale)
+    if out_scale is not None:
+        y = quantize_activation(y, out_scale)
+    n, c, h, w = y.shape
+    out = torch.empty((n, h, w, c), dtype=y.dtype, device=y.device)
+    return out.copy_(y.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
 
 def _rows_tile(ho: int, wo: int, cin: int, kh: int, kw: int, stride: int,
@@ -191,6 +201,37 @@ def plan(n: int, h: int, w: int, cin: int, cout: int, kh: int, kw: int,
     tiles = math.ceil(ho / tile_h) * math.ceil(wo / tile_w)
     return Plan(name, path, bm, bn, wm, wn, stages, threads, kp,
                 (n * tiles, gy), smem, tile_h, tile_w, rows, cols, pitch)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(n: int, h: int, w: int, cin: int, cout: int, kh: int,
+                kw: int, stride: int, pad: int, dil: int,
+                aligned: bool = True) -> Tuple[Plan, Optional[int]]:
+    """(`plan`, None), or, where the rows path has no output patch whose
+    window fits in shared memory, (the vec path's plan, Cin rounded up to
+    a multiple of 16): K3 then runs on fresh (so 16-byte aligned) copies
+    of x and w zero-padded to that Cin (`pad_channels`).  The zero
+    channels add nothing to the int32 sums, so the result is the same
+    bits."""
+    try:
+        return plan(n, h, w, cin, cout, kh, kw, stride, pad, dil,
+                    aligned), None
+    except ValueError:
+        cin16 = -(-cin // 16) * 16
+        return plan(n, h, w, cin16, cout, kh, kw, stride, pad, dil,
+                    True), cin16
+
+
+def pad_channels(x_q: torch.Tensor, w_q: torch.Tensor, cin: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x_q (N, Cin, H, W) and w_q (Cout, kh, kw, Cin) copied into fresh
+    zero buffers with ``cin`` channels (x in NHWC memory)."""
+    n, c, h, w = x_q.shape
+    x_pad = x_q.new_zeros((n, h, w, cin))
+    x_pad[..., :c] = x_q.permute(0, 2, 3, 1)
+    w_pad = w_q.new_zeros((*w_q.shape[:3], cin))
+    w_pad[..., :c] = w_q
+    return x_pad.permute(0, 3, 1, 2), w_pad
 
 
 def row_table(cin: int, kh: int, kw: int, dil: int, pitch: int,
@@ -274,18 +315,33 @@ def int8_conv(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     """int8 conv with the fused rescale/bias/requantize epilogue.  ``x_q``
     int8 (N, Cin, H, W), ``w_q`` int8 (Cout, kh, kw, Cin), ``scale`` and
     ``bias`` f32 (Cout,), ``out_scale`` a f32 scalar tensor (>= 1e-12).
-    Returns (N, Cout, Ho, Wo) in ``dtype``, or int8 with ``out_scale``;
-    ``channels_last`` memory on the card.  CUDA tensors run K3 as `plan`
-    says (ValueError where no rows-path patch fits in shared memory), CPU
-    tensors the plain version."""
-    global launches
+    Returns (N, Cout, Ho, Wo) in ``dtype``, or int8 with ``out_scale``, in
+    ``channels_last`` memory.  CUDA tensors run K3 as `launch_plan` says,
+    CPU tensors the plain version."""
     _check(x_q, w_q, scale, bias, dtype, out_scale)
+    return torch.ops.ssd.int8_conv(x_q, w_q, scale, bias, stride, padding,
+                                   dilation, dtype, out_scale)
+
+
+@torch.library.custom_op("ssd::int8_conv", mutates_args=(),
+                         device_types="cpu")
+def int8_conv_op(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                 bias: Optional[torch.Tensor], stride: int, padding: int,
+                 dilation: int, dtype: torch.dtype,
+                 out_scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """The op behind `int8_conv`; on the CPU, the plain version."""
+    return int8_conv_plain(x_q, w_q, scale, bias, stride, padding, dilation,
+                           dtype, out_scale)
+
+
+@int8_conv_op.register_kernel("cuda")
+def _int8_conv_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
+                    scale: torch.Tensor, bias: Optional[torch.Tensor],
+                    stride: int, padding: int, dilation: int,
+                    dtype: torch.dtype, out_scale: Optional[torch.Tensor]
+                    ) -> torch.Tensor:
+    global launches
     device = x_q.device
-    if device.type == "cpu":
-        return int8_conv_plain(x_q, w_q, scale, bias, stride, padding,
-                               dilation, dtype, out_scale)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
     n, cin, h, w = x_q.shape
     cout, kh, kw, _ = w_q.shape
     ho = out_size(h, kh, stride, padding, dilation)
@@ -299,8 +355,11 @@ def int8_conv(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     scale = scale.contiguous()
     bias = None if bias is None else bias.contiguous()
     mode = (_INT8_MODES if out_scale is not None else _MODES)[dtype]
-    p = plan(n, h, w, cin, cout, kh, kw, stride, padding, dilation,
-             aligned=x_q.data_ptr() % 16 == 0 and w_q.data_ptr() % 16 == 0)
+    p, padded = launch_plan(
+        n, h, w, cin, cout, kh, kw, stride, padding, dilation,
+        aligned=x_q.data_ptr() % 16 == 0 and w_q.data_ptr() % 16 == 0)
+    if padded is not None:
+        x_q, w_q = pad_channels(x_q, w_q, padded)
     table = (None if p.path == "vec"
              else _device_table(p, cin, kh, kw, dilation, device))
     lib = _lib or build()
@@ -308,9 +367,9 @@ def int8_conv(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
             None if bias is None else bias.data_ptr(),
             None if out_scale is None else out_scale.data_ptr(),
             None if table is None else table.data_ptr(),
-            out.data_ptr(), n, h, w, cin, cout, kh, kw, stride, padding,
-            dilation, ho, wo, mode, PATH_IDS[p.path], p.bm, p.bn, p.wm,
-            p.wn, p.stages, p.tile_h, p.tile_w, p.smem,
+            out.data_ptr(), n, h, w, x_q.shape[1], cout, kh, kw, stride,
+            padding, dilation, ho, wo, mode, PATH_IDS[p.path], p.bm, p.bn,
+            p.wm, p.wn, p.stages, p.tile_h, p.tile_w, p.smem,
             torch.cuda.current_stream(device).cuda_stream)
     if device.index == torch.cuda.current_device():
         err = lib.ssd_int8_conv(*args)
@@ -319,4 +378,18 @@ def int8_conv(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
             err = lib.ssd_int8_conv(*args)
     cuda_build.check(lib, err, f"ssd_int8_conv ({p.name})")
     launches += 1
+    return out.permute(0, 3, 1, 2)
+
+
+@int8_conv_op.register_fake
+def _int8_conv_fake(x_q: torch.Tensor, w_q: torch.Tensor,
+                    scale: torch.Tensor, bias: Optional[torch.Tensor],
+                    stride: int, padding: int, dilation: int,
+                    dtype: torch.dtype, out_scale: Optional[torch.Tensor]
+                    ) -> torch.Tensor:
+    n, _, h, w = x_q.shape
+    cout, kh, kw, _ = w_q.shape
+    out = x_q.new_empty((n, out_size(h, kh, stride, padding, dilation),
+                         out_size(w, kw, stride, padding, dilation), cout),
+                        dtype=torch.int8 if out_scale is not None else dtype)
     return out.permute(0, 3, 1, 2)

@@ -68,6 +68,11 @@ CASES = [
      "--no-int8-chain", "--recalibrate", "--bf16"],
     ["detect", "a.jpg", "--int8", "--backbone", "resnet34"],
     ["train", "--qat", "--ema-decay", "0.999", "--epochs", "2"],
+    ["export", "--out-dir", "art", "--latency-profile", "--use-ema",
+     "--allow-random-init", "--int8-calib-images", "8", "--no-int8-chain",
+     "--bf16", "--tta-flip"],
+    ["export", "--out-dir", "art", "--serve-batch-size", "4", "--backbone",
+     "resnet34", "--int8", "--recalibrate", "--transfer-dtype", "float32"],
 ]
 
 
@@ -91,7 +96,7 @@ def test_device_defaults_to_cuda_and_unported_flags_are_refused():
     assert _parse(cli, ["eval", "--device", "cpu"]).device == "cpu"
     for argv in (["train", "--fsdp", "2"], ["eval", "--tp", "2"],
                  ["detect", "x.jpg", "--draw"],
-                 ["export", "--out-dir", "x"]):
+                 ["export", "--out-dir", "x", "--scoped-vmem-kib", "4"]):
         with pytest.raises(SystemExit):
             _parse(cli, argv)
 

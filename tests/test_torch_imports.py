@@ -30,6 +30,8 @@ MODULES = (
     "objectdetection_ssd_torch.infer.postprocess",
     "objectdetection_ssd_torch.infer.detector",
     "objectdetection_ssd_torch.infer.quant",
+    "objectdetection_ssd_torch.infer.export",
+    "objectdetection_ssd_torch.serve_http",
     "objectdetection_ssd_torch.data.pipeline",
     "objectdetection_ssd_torch.data.voc",
     "objectdetection_ssd_torch.data.augment",
@@ -123,20 +125,20 @@ def test_no_silent_cpu_fallback_without_cuda(monkeypatch):
 
 
 def test_unported_options_raise():
-    """What is still unported is refused, not silently ignored: export and
-    the mesh strategies have no flag, no config and no module in the
+    """What is still unported is refused, not silently ignored: the mesh
+    strategies and the doctor have no flag, no config and no module in the
     port."""
     import importlib
     import dataclasses
     from objectdetection_ssd_torch import cli, config
 
-    for argv in (["export", "--out-dir", "x"], ["train", "--fsdp", "2"],
+    for argv in (["doctor"], ["train", "--fsdp", "2"],
                  ["train", "--pp", "2"]):
         with pytest.raises(SystemExit):
             cli.main(argv)
     assert "mesh_shape" not in {f.name for f in dataclasses.fields(
         config.TrainConfig)}
-    for module in ("objectdetection_ssd_torch.infer.export",
+    for module in ("objectdetection_ssd_torch.utils.doctor",
                    "objectdetection_ssd_torch.parallel"):
         with pytest.raises(ModuleNotFoundError):
             importlib.import_module(module)

@@ -320,6 +320,63 @@ def test_plan_raises_where_no_window_fits():
         k3.plan(1, 19, 19, 1024, 1024, 3, 3, 1, 6, 6, aligned=False)
 
 
+# The shapes of the L1 gap (a 3x3 dilation-6 conv over ~1024 channels,
+# 19 x 19: no rows-path window fits in shared memory), (N, H, W, Cin,
+# Cout, kh, kw, stride, pad, dil), aligned, and the Cin K3 pads them to;
+# and two near the limit that still plan on the rows path as they are
+# (fc6 as SSD300 builds it, and dilation 6 over 512 channels).
+L1_SHAPES = (((2, 19, 19, 1024, 1024, 3, 3, 1, 6, 6), False, 1024),
+             ((2, 19, 19, 1000, 1024, 3, 3, 1, 6, 6), True, 1008),
+             ((2, 19, 19, 1000, 1024, 3, 3, 1, 6, 6), False, 1008))
+NEAR_L1 = ((2, 19, 19, 512, 1024, 3, 3, 1, 4, 4),
+           (2, 19, 19, 512, 1024, 3, 3, 1, 6, 6))
+
+
+@pytest.mark.parametrize("shape,aligned,cin", L1_SHAPES, ids=str)
+def test_launch_plan_pads_where_no_window_fits(shape, aligned, cin):
+    with pytest.raises(ValueError, match="no output patch"):
+        k3.plan(*shape, aligned=aligned)
+    p, padded = k3.launch_plan(*shape, aligned=aligned)
+    assert padded == cin
+    want = list(shape)
+    want[3] = cin
+    assert p == k3.plan(*want, aligned=True)
+    assert p.path == "vec" and p.smem <= k3.MAX_SMEM
+
+
+@pytest.mark.parametrize("shape", NEAR_L1, ids=str)
+def test_launch_plan_keeps_shapes_that_fit(shape):
+    p, padded = k3.launch_plan(*shape, aligned=False)
+    assert padded is None
+    assert p == k3.plan(*shape, aligned=False) and p.path == "rows"
+
+
+@pytest.mark.parametrize("cin", [12, 16], ids=["ragged", "whole"])
+def test_padded_conv_is_the_same_bits(cin):
+    """`pad_channels` to the next multiple of 16 (and one more block of
+    16): the plain conv gives the same bits, int8 output too."""
+    g = torch.Generator().manual_seed(cin)
+    x = torch.randint(-127, 128, (2, cin, 9, 8), generator=g,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (5, 3, 3, cin), generator=g,
+                      dtype=torch.int8)
+    scale = torch.rand(5, generator=g) * 1e-2
+    bias = torch.randn(5, generator=g)
+    for to in (-(-cin // 16) * 16, -(-cin // 16) * 16 + 16):
+        xp, wp = k3.pad_channels(x, w, to)
+        assert xp.shape == (2, to, 9, 8) and wp.shape == (5, 3, 3, to)
+        assert xp.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(xp[:, :cin], x) and not xp[:, cin:].any()
+        for out_scale, dtype in ((None, torch.float32),
+                                 (None, torch.bfloat16),
+                                 (torch.tensor(0.3), torch.float32)):
+            want = k3.int8_conv(x, w, scale, bias, 1, 6, 6, dtype,
+                                out_scale)
+            got = k3.int8_conv(xp, wp, scale, bias, 1, 6, 6, dtype,
+                               out_scale)
+            assert got.dtype == want.dtype and torch.equal(got, want)
+
+
 # --------------------------------------------------- requantize shortcut
 
 def _requantize_like_the_kernel(y: np.ndarray,
