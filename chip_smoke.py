@@ -55,7 +55,16 @@ bf16 batch-32 wrapped and unwrapped steps timed in turns (the wrappers'
 overhead), `cli train --eval-map-every 1 --profile-dir` and `cli eval
 --data-parallel 1` on the trainer slice's fixture (multi-rank mAP == the
 plain path's, K1 once per batch); the ResNet-34 step's host time split
-under `profiler_trace`; `cli doctor --json`.
+under `profiler_trace`; `cli doctor --json`.  Then tensor and spatial
+parallelism (`parallel/tensor_parallel.py`, `parallel/spatial.py`): two
+gloo ranks sharing the one card on a (1, 2) data x model and a (1, 2)
+data x spatial mesh, the f32 routed SSD300 step against the
+single-process card step (K2 counted), the ResNet-34 train-mode step
+under SP, bf16 and int8 `Detector(mesh=)` serving (K1 per batch, K3 23
+per forward per rank, every K3 call bit-equal to its slice of the
+single-process call), one `Trainer.fit` epoch and one `evaluate_records`
+under SP on the trainer fixture (the checkpoint reloaded at world size
+1), and the bytes SSD300's gathers and halos move per step.
 Then one JSON line with each kernel's
 numbers, the card's name and power limit as nvidia-smi gives them, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -3041,6 +3050,557 @@ def phase_gloo_leg() -> dict:
     return out
 
 
+# Tensor and spatial parallelism (`parallel/tensor_parallel.py`,
+# `parallel/spatial.py`): two processes on the one card over gloo (NCCL
+# takes one rank per card), a (1, 2) data x model and a (1, 2) data x
+# spatial mesh, held against the single-process runs on the same card.
+# Their times are those of two gloo ranks sharing one card: they are not
+# a multi-card figure, and the collectives cross the host.
+TP_SP_WAYS = 2
+TP_SP_SERVE_BATCH = 8
+TP_SP_INT8_BATCH = 2
+TP_SP_TIMING_STEPS = 3
+# The trainer-slice fixture for the SP epoch (the trainer slice's sizes).
+TP_SP_FIXTURE = (448, 192)
+# The f32 step under a partition against the single-process step on the
+# card (cuDNN deterministic, TF32 off): the loss to the train gate, the
+# gradients to 1e-5 of their largest, as on the CPU (tests/test_torch_tp.py,
+# tests/test_torch_sp.py): the partitioned convs sum the same products,
+# and only the order of the sums differs (cuDNN may pick other algorithms
+# for half the channels or rows; measured by this script on an H100 80GB
+# HBM3 at 700 W: 9.2e-7 under TP, 3.2e-6 under SP).
+TP_SP_GRAD_TOL = 1e-5
+# ResNet-34 in train mode under spatial partitioning: the train-mode BN
+# gate of ROADMAP.md §3 (5e-4 of the largest gradient).
+TP_SP_RESNET_TOL = 5e-4
+# f32 detections under a partition against the single-process Detector on
+# the card: every row matched to one of the same image and class, score and
+# box within this (tests/test_torch_detector.py's tolerance).  In bf16 the
+# detection sets themselves differ (an ulp of a bf16 logit flips NMS and
+# top-k choices among the many near-equal candidates of the wide-bias
+# weights: 199 of 491 rows found no partner at any tolerance up to 0.3 in
+# this script's first run), so bf16 is held by its loc / conf outputs.
+TP_SP_DET_ATOL = 1e-4
+# bf16 loc / conf under a partition against the single-process forward:
+# four bf16 rounding steps (2^-8 each) of the largest output, since the
+# forward's 23 convs round to bf16 one after another and an ulp that flips
+# in one moves the next (measured by this script on an H100 80GB HBM3 at
+# 700 W: 1.05e-2 under TP, 5.2e-3 under SP).
+TP_SP_BF16_TOL = 2.0 ** -6
+# The SSD300 collectives whose bytes are reported: batch and dtype.
+COLLECTIVE_BATCH = 32
+
+
+class _CountSpatial:
+    """A stand-in for `parallel/spatial.py:SpatialParallel` on the meta
+    device: the shapes of rank 0 of ``ways``, and the bytes of every
+    all-gather stack (halo bands, head rows) the real one would build."""
+
+    kind = "spatial"
+
+    def __init__(self, ways: int):
+        self.ways, self.index, self.halo, self.heads = ways, 0, 0, 0
+
+    @staticmethod
+    def narrow_rows(y, start, n):
+        return y.narrow(2, start, n)
+
+    def full_channels(self, x, channels):
+        return x
+
+    def rows(self, height):
+        from objectdetection_ssd_torch.parallel.mesh import row_bounds
+        return row_bounds(height, self.ways, self.index)
+
+    def enter(self, x):
+        lo, hi = self.rows(x.shape[2])
+        return x[:, :, lo:hi]
+
+    def extend(self, x, kernel, stride=1, padding=0, dilation=1,
+               ceil_mode=False, fill=0.0, pad_w=0):
+        from objectdetection_ssd_torch.parallel.spatial import halo_plan
+        p = halo_plan(x.shape[3], self.ways, kernel, stride, padding,
+                      dilation, ceil_mode)
+        b, c, _, w = x.shape
+        self.halo += (self.ways * sum(p.widths) * b * w * c
+                      * x.element_size())
+        lo, hi = p.need[self.index]
+        return x.new_empty((b, c, hi - lo, w + 2 * pad_w)), p.rows[self.index]
+
+    def whole(self, x, channels=None):
+        from objectdetection_ssd_torch.parallel.mesh import row_bounds
+        b, c, _, w = x.shape
+        widest = max(hi - lo for lo, hi in (row_bounds(w, self.ways, j)
+                                            for j in range(self.ways)))
+        self.heads += self.ways * widest * b * w * c * x.element_size()
+        return x.new_empty((b, c, w, w))
+
+
+class _CountTensor:
+    """A stand-in for `parallel/tensor_parallel.py:TensorParallel` over a
+    whole model on the meta device: the bytes of every channel gather the
+    real one would make (each tensor a sharded conv produced, once)."""
+
+    kind = "model"
+
+    def __init__(self, ways: int):
+        self.ways, self.bytes, self.seen = ways, 0, []
+
+    def enter(self, x):
+        return x
+
+    def full_channels(self, x, channels):
+        if (channels % self.ways == 0 and channels > 3
+                and not any(x is t for t in self.seen)):
+            self.seen.append(x)
+            self.bytes += x.numel() * x.element_size()
+        return x
+
+    whole = full_channels
+
+
+def collective_bytes(ways: int, batch: int = COLLECTIVE_BATCH) -> dict:
+    """The bytes of SSD300's collectives per step at ``batch`` bf16, for a
+    ``model`` or ``spatial`` axis of ``ways`` ranks, from the shapes (a
+    forward on the meta device through stand-ins of the two partitions):
+    each all-gather's stack (every rank ends up holding it; the backward
+    all-reduces a buffer of the same size), and TP's L2Norm all-reduce of
+    the f32 squares."""
+    from objectdetection_ssd_torch.models.layers import set_partition
+    from objectdetection_ssd_torch.models.ssd import SSD300
+    with torch.device("meta"):
+        model = SSD300(dtype=torch.bfloat16).to(torch.bfloat16)
+        images = torch.empty((batch, 300, 300, 3), dtype=torch.uint8)
+    out = {}
+    for part in (_CountTensor(ways), _CountSpatial(ways)):
+        set_partition(model, part)
+        with torch.no_grad():
+            model(images)
+        out[part.kind] = part
+    set_partition(model, None)
+    l2 = batch * 38 * 38 * 4 if 512 % ways == 0 else 0
+    return {"tp_gather": out["model"].bytes, "tp_l2norm": l2,
+            "sp_halo": out["spatial"].halo, "sp_heads": out["spatial"].heads}
+
+
+def int8_calls_match(part, got: list, want: list) -> list:
+    """Per K3 call: this rank's output equal, bit for bit, to its slice of
+    the single-process call's output: its channels (tensor parallel) or
+    the rows it computed (spatial; a rank without rows computes one)."""
+    same = []
+    for g, w in zip(got, want):
+        if part.kind == "model":
+            lo, hi = (part.channels(w.shape[1]) if g.shape[1] != w.shape[1]
+                      else (0, w.shape[1]))
+            ref = w[:, lo:hi]
+        else:
+            h = w.shape[2]
+            lo, hi = part.rows(h)
+            start = lo if hi > lo else min(lo, h - 1)
+            ref = w[:, :, start:start + g.shape[2]]
+        same.append(g.shape == ref.shape and torch.equal(g.cpu(), ref))
+    return same
+
+
+@contextlib.contextmanager
+def recording_k3(calls: list):
+    """While open, every K3 call's output is appended to ``calls`` (on the
+    CPU)."""
+    from objectdetection_ssd_torch.models import layers
+    original = layers.k3.int8_conv
+
+    def recording(*args, **kw):
+        out = original(*args, **kw)
+        calls.append(out.cpu())
+        return out
+
+    layers.k3.int8_conv = recording
+    try:
+        yield calls
+    finally:
+        layers.k3.int8_conv = original
+
+
+def local_part(t: torch.Tensor) -> tuple:
+    """(this rank's part of ``t`` on the CPU, whether it is a channel shard
+    of a tensor-parallel DTensor)."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(t, DTensor):
+        return t.cpu(), False
+    return t.to_local().cpu(), any(isinstance(p, Shard)
+                                   for p in t.placements)
+
+
+def join_parts(ranks: list, own: int) -> dict:
+    """The whole tensors of `local_part`s, one dict per rank in rank order:
+    channel shards concatenated, replicated parts rank ``own``'s."""
+    return {n: (torch.cat([r[n][0] for r in ranks]) if part[1] else part[0])
+            for n, part in ranks[own].items()}
+
+
+def _tp_sp_rank(rank, init_file, tmp):
+    """One rank of the two-rank TP / SP leg, on the card."""
+    import faulthandler
+    import os
+
+    import torch.distributed as dist
+
+    from objectdetection_ssd_torch.config import (Config, DataConfig,
+                                                  ModelConfig, OptimConfig,
+                                                  TrainConfig)
+    from objectdetection_ssd_torch.data.pipeline import Loader
+    from objectdetection_ssd_torch.eval.evaluate import (
+        evaluate_records, exact_eval_postprocess)
+    from objectdetection_ssd_torch.infer import nms_cuda
+    from objectdetection_ssd_torch.infer.detector import Detector
+    from objectdetection_ssd_torch.ops import dw_cuda, int8_conv
+    from objectdetection_ssd_torch.ops.priors import (resnet34_priors,
+                                                      ssd300_priors)
+    from objectdetection_ssd_torch.parallel import mesh as mesh_lib
+    from objectdetection_ssd_torch.train.loop import train_step
+    from objectdetection_ssd_torch.train.state import create_train_state
+    from objectdetection_ssd_torch.train.trainer import Trainer
+
+    faulthandler.enable()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=TP_SP_WAYS)
+    try:
+        dw_cuda.build()
+        nms_cuda.build()
+        int8_conv.build()
+        dev = torch.device("cuda", 0)
+        inp = torch.load(f"{tmp}/inputs.pt", weights_only=False)
+        single_calls = torch.load(f"{tmp}/int8_calls.pt")
+        priors = torch.tensor(ssd300_priors(), device=dev)
+        batch = {k: v.to(dev) for k, v in inp["batch"].items()}
+        out = {}
+        for axis in ("model", "spatial"):
+            mesh = mesh_lib.create_mesh((1, TP_SP_WAYS), ("data", axis),
+                                        "cuda")
+            r = {}
+            t0 = time.perf_counter()
+            state = create_train_state(
+                ModelConfig(dw_pallas_convs=ROUTED), OptimConfig(),
+                device=dev, state_dict=inp["train_sd"], mesh=mesh)
+            # The main path: counts set to 0 just before, read just after.
+            dw_cuda.launches = 0
+            state, metrics = train_step(state, batch, priors)
+            torch.cuda.synchronize()
+            r["k2"] = dw_cuda.launches
+            r["metrics"] = {k: float(v) for k, v in metrics.items()}
+            # This rank's part of each gradient; the parent joins the
+            # channel shards (DTensor's own gathers crash on gloo with
+            # CUDA tensors, torch 2.11).
+            r["grads"] = {n: local_part(p.grad) for n, p in
+                          state.model.named_parameters()}
+            t1 = time.perf_counter()
+            for _ in range(TP_SP_TIMING_STEPS):
+                train_step(state, batch, priors)
+            torch.cuda.synchronize()
+            r["step_ms"] = (time.perf_counter() - t1) / TP_SP_TIMING_STEPS \
+                * 1e3
+            del state
+            if axis == "spatial":
+                rbatch = {k: v.to(dev) for k, v in inp["resnet_batch"]
+                          .items()}
+                state = create_train_state(
+                    ModelConfig(backbone="resnet34",
+                                image_size=RESNET_SIZE), OptimConfig(),
+                    device=dev, state_dict=inp["resnet_sd"], mesh=mesh)
+                state, metrics = train_step(
+                    state, rbatch, torch.tensor(resnet34_priors(),
+                                                device=dev), seed=SEED)
+                r["resnet"] = (
+                    {k: float(v) for k, v in metrics.items()},
+                    {n: p.grad.cpu() for n, p in
+                     state.model.named_parameters() if p.grad is not None},
+                    {n: t.cpu() for n, t in state.model.state_dict().items()
+                     if n.endswith(("running_mean", "running_var"))})
+                del state
+            images = inp["images"].to(dev)
+            det = Detector(Config(), inp["serve_sd"], device=dev, mesh=mesh)
+            nms_cuda.launches = 0
+            dets = det.detect_batch(images)
+            torch.cuda.synchronize()
+            r["k1"] = nms_cuda.launches
+            r["f32"] = [t.cpu() for t in dets]
+            det = Detector(Config(model=ModelConfig(
+                compute_dtype="bfloat16")), inp["serve_sd"], device=dev,
+                mesh=mesh)
+            r["bf16"] = [t.float().cpu() for t in det.forward(images)]
+            nms_cuda.launches = 0
+            det.detect_batch(images)
+            torch.cuda.synchronize()
+            r["k1"] += nms_cuda.launches
+            t1 = time.perf_counter()
+            for _ in range(TP_SP_TIMING_STEPS):
+                det.detect_batch(images)
+            torch.cuda.synchronize()
+            r["serve_ms"] = (time.perf_counter() - t1) / TP_SP_TIMING_STEPS \
+                * 1e3
+            del det
+            det = Detector(Config(), inp["serve_sd"], device=dev,
+                           quant=inp["qtree"], mesh=mesh)
+            calls = []
+            int8_conv.launches = 0
+            with recording_k3(calls):
+                dets = det.detect_batch(images[:TP_SP_INT8_BATCH])
+            torch.cuda.synchronize()
+            r["k3"] = int8_conv.launches
+            part = det.model.trunk.conv1_1.part
+            r["int8_calls"] = (len(calls), len(single_calls),
+                               int8_calls_match(part, calls, single_calls))
+            r["int8"] = [t.cpu() for t in dets]
+            del det
+            r["seconds"] = time.perf_counter() - t0
+            out[axis] = r
+
+        # One Trainer epoch and one eval under spatial partitioning.
+        t0 = time.perf_counter()
+        mesh = mesh_lib.create_mesh((1, TP_SP_WAYS), ("data", "spatial"),
+                                    "cuda")
+        shard = mesh_lib.data_shard(mesh)
+        root, prefix = f"{tmp}/VOCdevkit", f"{tmp}/cache"
+        train_recs, val_recs = inp["records"]
+        cfg = Config(
+            model=ModelConfig(compute_dtype="bfloat16"),
+            data=DataConfig(voc_root=root, batch_size=TIMING_TRAIN_BATCH,
+                            num_workers=min(4, os.cpu_count() or 1),
+                            image_cache=prefix),
+            train=TrainConfig(checkpoint_dir=f"{tmp}/ckpt",
+                              log_every_steps=0, seed=SEED,
+                              mesh_shape=(1, TP_SP_WAYS),
+                              mesh_axis_names=("data", "spatial")))
+        loaders = (Loader(train_recs, cfg.data, 300, train=True,
+                          seed=SEED, cache_path=prefix, shard=shard),
+                   Loader(val_recs, cfg.data, 300, train=False,
+                          drop_last=False, cache_path=prefix + ".val",
+                          shard=shard))
+        try:
+            trainer = Trainer(cfg, *loaders, device=dev)
+            dw_cuda.launches = 0
+            trainer.fit(1)
+            torch.cuda.synchronize()
+            fit = {"history": trainer.history,
+                   "stats": trainer.phase_stats, "step": trainer.state.step,
+                   "params": {n: p.detach().cpu() for n, p in
+                              trainer.state.model.named_parameters()}}
+            det = Detector(cfg, trainer.state.model.state_dict(), device=dev,
+                           postprocess_config=exact_eval_postprocess(
+                               cfg.postprocess), mesh=mesh)
+            nms_cuda.launches = 0
+            t1 = time.perf_counter()
+            _, fit["map"] = evaluate_records(cfg, None, val_recs,
+                                             detector=det,
+                                             image_cache=prefix + ".val")
+            torch.cuda.synchronize()
+            fit["eval_s"] = time.perf_counter() - t1
+            fit["eval_k1"] = nms_cuda.launches
+            fit["eval_batches"] = -(-len(val_recs) // TIMING_TRAIN_BATCH)
+        finally:
+            for loader in loaders:
+                loader.close()
+        fit["seconds"] = time.perf_counter() - t0
+        out["trainer"] = fit
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp_sp_leg() -> dict:
+    """Two processes on the one card over gloo: tensor parallelism
+    (``data x model`` = 1 x 2) and spatial partitioning (``data x
+    spatial`` = 1 x 2) of the f32 routed SSD300 step (K2 counted), bf16
+    and int8 serving through `Detector(mesh=)` (K1 and K3 counted, every
+    K3 call bit-equal to the single-process call's slice), the ResNet-34
+    train-mode step under SP, then one `Trainer.fit` epoch and one
+    `evaluate_records` under SP on the trainer slice's fixture, whose
+    checkpoint reloads at world size 1 to the ranks' parameters.  Held
+    against the single-process runs on the card."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from objectdetection_ssd_torch.config import (Config, ModelConfig,
+                                                  OptimConfig)
+    from objectdetection_ssd_torch.infer import quant as quant_lib
+    from objectdetection_ssd_torch.infer.detector import Detector
+    from objectdetection_ssd_torch.models.ssd import build_model
+    from objectdetection_ssd_torch.ops.priors import (resnet34_priors,
+                                                      ssd300_priors)
+    from objectdetection_ssd_torch.train.checkpoint import CheckpointManager
+    from objectdetection_ssd_torch.train.loop import train_step
+    from objectdetection_ssd_torch.train.state import create_train_state
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 24)
+    serve_sd = seeded_state_dict()
+    images = torch.randint(0, 256, (TP_SP_SERVE_BATCH, 300, 300, 3),
+                           generator=gen, dtype=torch.uint8)
+    inp = {"train_sd": train_init_state_dict(),
+           "batch": synthetic_batch(TRAIN_BATCH, gen),
+           "resnet_sd": seeded_resnet_state_dict(),
+           "resnet_batch": synthetic_batch(RESNET_TRAIN_BATCH, gen,
+                                           size=RESNET_SIZE),
+           "serve_sd": serve_sd, "images": images}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # The single-process references on the card.
+        model = build_model(ModelConfig(), device=dev, train=True)
+        model.load_state_dict(serve_sd)
+        inp["qtree"] = quant_lib.chain_scales(quant_lib.act_scales(
+            quant_lib.calibrate(model, [images[:TP_SP_INT8_BATCH].to(dev)])),
+            "vgg16")
+        del model
+        single_calls = []
+        with recording_k3(single_calls):
+            single_int8 = Detector(Config(), serve_sd, device=dev,
+                                   quant=inp["qtree"]).detect_batch(
+                images[:TP_SP_INT8_BATCH].to(dev))
+        single_f32 = Detector(Config(), serve_sd, device=dev).detect_batch(
+            images.to(dev))
+        single_bf16 = [t.float().cpu() for t in Detector(Config(
+            model=ModelConfig(compute_dtype="bfloat16")), serve_sd,
+            device=dev).forward(images.to(dev))]
+        state = create_train_state(ModelConfig(dw_pallas_convs=ROUTED),
+                                   OptimConfig(), device=dev,
+                                   state_dict=inp["train_sd"])
+        state, metrics = train_step(
+            state, {k: v.to(dev) for k, v in inp["batch"].items()},
+            torch.tensor(ssd300_priors(), device=dev))
+        single_step = ({k: float(v) for k, v in metrics.items()},
+                       {n: p.grad.cpu() for n, p in
+                        state.model.named_parameters()})
+        del state
+        state = create_train_state(
+            ModelConfig(backbone="resnet34", image_size=RESNET_SIZE),
+            OptimConfig(), device=dev, state_dict=inp["resnet_sd"])
+        state, metrics = train_step(
+            state, {k: v.to(dev) for k, v in inp["resnet_batch"].items()},
+            torch.tensor(resnet34_priors(), device=dev), seed=SEED)
+        single_resnet = (
+            {k: float(v) for k, v in metrics.items()},
+            {n: p.grad.cpu() for n, p in state.model.named_parameters()
+             if p.grad is not None},
+            {n: t.cpu() for n, t in state.model.state_dict().items()
+             if n.endswith(("running_mean", "running_var"))})
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tpsp_") as tmp:
+        inp["records"] = write_fixture(f"{tmp}/VOCdevkit", f"{tmp}/cache",
+                                       *TP_SP_FIXTURE)
+        torch.save(inp, f"{tmp}/inputs.pt")
+        torch.save(single_calls, f"{tmp}/int8_calls.pt")
+        t0 = time.perf_counter()
+        mp.start_processes(_tp_sp_rank, args=(f"{tmp}/pg", tmp),
+                           nprocs=TP_SP_WAYS, start_method="spawn")
+        leg_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                 for r in range(TP_SP_WAYS)]
+        saved, _, _ = CheckpointManager(f"{tmp}/ckpt").load()
+
+    out = {"seconds": leg_s, "k1": 0, "k2": 0, "k3": 0}
+    smetrics, sgrads = single_step
+    zeros = {n: torch.zeros_like(g) for n, g in sgrads.items()}
+    for axis in ("model", "spatial"):
+        row = {"step_ms": [], "serve_ms": [], "seconds": []}
+        for rank, res in enumerate(ranks):
+            r = res[axis]
+            for key in ("step_ms", "serve_ms", "seconds"):
+                row[key].append(r[key])
+            what = f"{axis} rank {rank}"
+            loss_rel = abs(r["metrics"]["loss"] - smetrics["loss"]) / abs(
+                smetrics["loss"])
+            grads = join_parts([x[axis]["grads"] for x in ranks], rank)
+            rows = change_rows(grads, sgrads, zeros)
+            worst, _, worst_name = rows[0]
+            norm = max(x[1] for x in rows)
+            if not (loss_rel <= TRAIN_LOSS_RTOL and worst <= TP_SP_GRAD_TOL
+                    and norm <= TRAIN_DELTA_NORM_TOL):
+                fail(f"{what}: step loss {loss_rel:.3e} relative, gradients "
+                     f"{worst:.3e} of the largest ({worst_name}), {norm:.3e} "
+                     f"in norm against the single-process step")
+            if r["k2"] != 4:
+                fail(f"{what}: K2 launched {r['k2']} times in a step")
+            if r["k1"] != 2:
+                fail(f"{what}: K1 launched {r['k1']} times in two batches")
+            if r["k3"] != 23:
+                fail(f"{what}: K3 launched {r['k3']} times in a forward")
+            n_got, n_want, same = r["int8_calls"]
+            if n_got != n_want or not all(same):
+                fail(f"{what}: int8 calls {n_got} vs {n_want}, "
+                     f"{same.count(False)} not bit-equal to the "
+                     f"single-process call's slice")
+            f32 = match_detections(r["f32"], single_f32,
+                                   Config().postprocess.score_threshold,
+                                   TP_SP_DET_ATOL, f"{what} f32 serving")
+            bf16 = rel_diff(r["bf16"], single_bf16)
+            if bf16 > TP_SP_BF16_TOL:
+                fail(f"{what}: bf16 loc/conf {bf16:.3e} of their largest "
+                     f"from the single-process forward's")
+            int8 = match_detections(r["int8"], single_int8,
+                                    Config().postprocess.score_threshold,
+                                    TP_SP_DET_ATOL, f"{what} int8 serving")
+            row.update(loss_rel=max(row.get("loss_rel", 0.0), loss_rel),
+                       grad_rel=max(row.get("grad_rel", 0.0), worst),
+                       grad_worst=worst_name,
+                       grad_norm=max(row.get("grad_norm", 0.0), norm),
+                       f32=f32, bf16=max(row.get("bf16", 0.0), bf16),
+                       int8=int8, int8_calls=len(same))
+            out["k1"] += r["k1"]
+            out["k2"] += r["k2"]
+            out["k3"] += r["k3"]
+        out[axis] = row
+
+    rmetrics, rgrads, rstats = single_resnet
+    worst_resnet = 0.0
+    for rank, res in enumerate(ranks):
+        metrics, grads, stats = res["spatial"]["resnet"]
+        if abs(metrics["loss"] - rmetrics["loss"]) > TRAIN_LOSS_RTOL * abs(
+                rmetrics["loss"]):
+            fail(f"ResNet-34 SP rank {rank}: loss {metrics['loss']} vs "
+                 f"{rmetrics['loss']}")
+        for name, g in rgrads.items():
+            if name.startswith("loc_") and name.endswith("conv.bias"):
+                continue        # zero in exact arithmetic (a BN follows)
+            rel = float((grads[name] - g).abs().max() / g.abs().max())
+            worst_resnet = max(worst_resnet, rel)
+            if rel > TP_SP_RESNET_TOL:
+                fail(f"ResNet-34 SP rank {rank}: {name} gradient {rel:.3e} "
+                     f"of its largest")
+        for name, s in rstats.items():
+            if not torch.allclose(stats[name], s, rtol=1e-5, atol=1e-5):
+                fail(f"ResNet-34 SP rank {rank}: BN statistic {name}")
+    out["resnet_grad_rel"] = worst_resnet
+
+    fit = ranks[0]["trainer"]
+    history = fit["history"]["train"] + fit["history"]["test"]
+    if not all(math.isfinite(x) for x in history) or not math.isfinite(
+            fit["map"]):
+        fail(f"SP trainer: history {fit['history']}, mAP {fit['map']}")
+    if any(not torch.equal(saved["model"][n], p)
+           for n, p in fit["params"].items()):
+        fail("SP trainer: the checkpoint does not reload to the ranks' "
+             "parameters")
+    if fit["eval_k1"] != fit["eval_batches"]:
+        fail(f"SP eval: K1 launched {fit['eval_k1']} times in "
+             f"{fit['eval_batches']} batches")
+    if ranks[1]["trainer"]["map"] != fit["map"]:
+        fail("SP eval: the ranks' mAPs differ")
+    out["trainer"] = {k: fit[k] for k in ("history", "stats", "step", "map",
+                                          "eval_s", "eval_k1", "seconds")}
+    out["k1"] += sum(r["trainer"]["eval_k1"] for r in ranks)
+    out["bytes"] = {ways: collective_bytes(ways) for ways in (2, 4)}
+    return out
+
+
 def phase_parallel_cli(device, num_2007: int = 448, num_2012: int = 192,
                        batch: int = TIMING_TRAIN_BATCH,
                        workers: int = 0) -> dict:
@@ -3809,6 +4369,64 @@ def main(argv=None) -> int:
     print(f"parallel phases took {time.perf_counter() - t_phase:.1f} s")
     k1_launches += pc["train_k1"] + ev["launches"]
 
+    # Tensor and spatial parallelism: two gloo ranks on the one card.
+    t_phase = time.perf_counter()
+    tps = phase_tp_sp_leg()
+    shared = "two gloo ranks sharing one card, not a multi-card figure"
+    for axis, name in (("model", "TP = 2 (data x model = 1 x 2)"),
+                       ("spatial", "SP = 2 (data x spatial = 1 x 2)")):
+        r = tps[axis]
+        f32, int8 = r["f32"], r["int8"]
+        print(f"tp/sp: {name}, {shared} ({smi}): f32 SSD300 step batch "
+              f"{TRAIN_BATCH}, {list(ROUTED)} routed, against the "
+              f"single-process card step (cuDNN deterministic): loss "
+              f"{r['loss_rel']:.3e} relative, gradients "
+              f"{r['grad_rel']:.3e} of their largest ({r['grad_worst']}; "
+              f"gate {TP_SP_GRAD_TOL:.0e}), {r['grad_norm']:.3e} in norm; "
+              f"K2 4 per step per rank; "
+              f"{[round(x, 3) for x in r['step_ms']]} ms/step by rank; "
+              f"f32 detect_batch({TP_SP_SERVE_BATCH}): {f32['matched']} "
+              f"rows matched within {TP_SP_DET_ATOL:.0e} (largest "
+              f"difference {f32['worst']:.3e}, {f32['left']} at a cutoff); "
+              f"bf16 loc/conf {r['bf16']:.3e} of their largest from the "
+              f"single-process forward's (gate {TP_SP_BF16_TOL:.3e}), "
+              f"bf16 detect_batch {[round(x, 3) for x in r['serve_ms']]} "
+              f"ms/batch by rank; K1 1 per batch per rank; int8 "
+              f"detect_batch({TP_SP_INT8_BATCH}): {r['int8_calls']} K3 "
+              f"calls per rank, each bit-equal to its slice of the "
+              f"single-process call, {int8['matched']} rows matched "
+              f"(largest difference {int8['worst']:.3e}); "
+              f"{[round(x, 1) for x in r['seconds']]} s by rank")
+    print(f"tp/sp: ResNet-34 train mode, batch {RESNET_TRAIN_BATCH}, "
+          f"dropout, SP = 2 ({shared}): gradients "
+          f"{tps['resnet_grad_rel']:.3e} of their largest against the "
+          f"single-process card step (gate {TP_SP_RESNET_TOL:.0e}), losses "
+          f"and BN statistics within 1e-4 / 1e-5")
+    tr_sp = tps["trainer"]
+    st = tr_sp["stats"]["train"]
+    print(f"tp/sp: Trainer.fit, 1 bf16 epoch at batch {TIMING_TRAIN_BATCH} "
+          f"under SP = 2 ({shared}, {smi}): {st['images']} images in "
+          f"{st['steps']} steps, {st['seconds']:.1f} s "
+          f"({st['images'] / st['seconds']:.1f} images/s, input wait "
+          f"{st['input_wait_s'] / st['steps'] * 1e3:.1f} ms/step), losses "
+          f"{tr_sp['history']}; the checkpoint reloads at world size 1 to "
+          f"the ranks' parameters; evaluate_records under SP: mAP "
+          f"{tr_sp['map']:.4f} in {tr_sp['eval_s']:.1f} s, K1 "
+          f"{tr_sp['eval_k1']} per rank (once per batch); "
+          f"{tr_sp['seconds']:.1f} s")
+    for ways, b in tps["bytes"].items():
+        print(f"tp/sp collectives per step, SSD300 batch {COLLECTIVE_BATCH} "
+              f"bf16, {ways} ways (from the shapes): TP channel gathers "
+              f"{b['tp_gather'] / 2**20:.1f} MiB of stacks per forward (a "
+              f"buffer as large all-reduced in the backward), L2Norm "
+              f"{b['tp_l2norm'] / 2**20:.2f} MiB f32 all-reduced; SP halos "
+              f"{b['sp_halo'] / 2**20:.1f} MiB, head rows "
+              f"{b['sp_heads'] / 2**20:.1f} MiB")
+    print(f"tp/sp leg: {tps['seconds']:.1f} s of spawned ranks, "
+          f"{time.perf_counter() - t_phase:.1f} s in all")
+    k1_launches += tps["k1"]
+    k3_launches += tps["k3"]
+
     k2 = tt["k2"]
     k2_ops = sum(r["ops_ms"] for r in k2)
     k2_bytes = sum(r["bytes_ms"] for r in k2)
@@ -3825,8 +4443,8 @@ def main(argv=None) -> int:
         "replaces": "objectdetection_ssd_tpu/infer/nms_pallas.py:139 "
                     "(git eb1d1b7)",
         # Serving requests, cli eval's batches, the detect requests of
-        # SSD300 and ResNet-34, the serving artifacts' chunks and the
-        # data-parallel eval batches.
+        # SSD300 and ResNet-34, the serving artifacts' chunks, the
+        # data-parallel eval batches and the TP / SP ranks' batches.
         "launches": k1_launches,
         "max_abs_err": worst,
         # The serving shape; every shape's numbers are in per_shape.
@@ -3853,10 +4471,11 @@ def main(argv=None) -> int:
         "source": "objectdetection_ssd_torch/csrc/dw_conv3x3.cu",
         "replaces": "objectdetection_ssd_tpu/ops/dw_pallas.py:151",
         # The routed train steps, the remat phase's two steps, the
-        # wrapped steps (DDP and FSDP2) and rank 0 of the gloo leg.
+        # wrapped steps (DDP and FSDP2), rank 0 of the gloo leg and both
+        # ranks of the TP and SP steps.
         "launches": (tr["launches"] + rm["launches"]
                      + ps["ddp"]["launches"] + ps["fsdp"]["launches"]
-                     + pt["launches"] + gl["launches"]),
+                     + pt["launches"] + gl["launches"] + tps["k2"]),
         "max_abs_err": dw_worst,
         # The four launches of one bf16 batch-32 train step, summed.
         "ms": sum(r["ms"] for r in k2),
@@ -3874,7 +4493,8 @@ def main(argv=None) -> int:
         "replaces": "objectdetection_ssd_tpu/models/layers.py:124 "
                     "(Int8Conv, XLA)",
         # int8 serving requests (SSD300, ResNet-34, its flip TTA), the
-        # QAT phase's cli eval and detect and the int8 artifact's chunks.
+        # QAT phase's cli eval and detect, the int8 artifact's chunks and
+        # the TP / SP ranks' int8 forwards.
         "launches": k3_launches,
         "max_abs_err": iv["max_abs_err"],
         # The 23 launches of one batch-32 SSD300 int8 forward, summed.

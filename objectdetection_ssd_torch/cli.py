@@ -10,16 +10,23 @@ Usage:
   python -m objectdetection_ssd_torch.cli doctor --json
   torchrun --nproc-per-node 4 -m objectdetection_ssd_torch.cli train \
       --voc-root VOCdevkit --fsdp 2 --eval-map-every 1
+  torchrun --nproc-per-node 4 -m objectdetection_ssd_torch.cli train \
+      --voc-root VOCdevkit --tp 2          # or --sp 2
+  torchrun --nproc-per-node 4 -m objectdetection_ssd_torch.cli eval \
+      --voc-root VOCdevkit --sp 2 --data-parallel 2
 
 Both model families (``--backbone vgg16 | resnet34``), remat, Soft-NMS
 and flip TTA, the ``--init-*`` weight loaders, int8 serving (``eval`` /
 ``detect --int8``, on kernel K3), QAT (``train --qat``), the serving
 artifact (``export``, ``--latency-profile``; `infer/export.py`),
 TensorBoard (``--tb-dir``), profiling (``--profile-dir``), ``--draw``, the
-``doctor`` and data-parallel training and evaluation are ported.  Under
-``torchrun`` (one process per card) ``train`` runs DDP, or FSDP2 with
-``--fsdp N``, and ``eval`` evaluates data-parallel.  The tensor-, spatial-
-and pipeline-parallel flags (``--tp``, ``--sp``, ``--pp``, ``--pp-dp``,
+``doctor``, and data-, tensor- and spatial-parallel training and
+evaluation are ported.  Under ``torchrun`` (one process per card)
+``train`` runs DDP, FSDP2 with ``--fsdp N``, tensor parallelism with
+``--tp N`` or spatial partitioning with ``--sp N`` (the N processes of
+each group split one data shard's channels or rows), and ``eval``
+evaluates data-parallel, or with ``--tp`` / ``--sp`` on a (data, model) or
+(data, spatial) mesh.  The pipeline-parallel flags (``--pp``, ``--pp-dp``,
 ``--pp-microbatches``) are not accepted.
 
 This module imports no torch at import time: the Loader's spawn workers
@@ -350,22 +357,38 @@ def cmd_train(args) -> int:
     # no-op for one process).
     device = distributed.initialize(args.device)
     n_proc = distributed.process_count()
-    shard = (distributed.process_index(), n_proc) if n_proc > 1 else None
     cfg = build_config(args)
     if args.epochs is not None:
         cfg = cfg.replace(train=dataclasses.replace(
             cfg.train, num_epochs=args.epochs))
-    if args.fsdp and args.fsdp > 1:
-        if n_proc % args.fsdp:
-            raise SystemExit(f"--fsdp {args.fsdp} does not divide the "
+    secondary = [(flag, axis, v) for flag, axis, v in (
+        ("--fsdp", "fsdp", args.fsdp), ("--tp", "model", args.tp),
+        ("--sp", "spatial", args.sp)) if v and v > 1]
+    if len(secondary) > 1:
+        raise SystemExit(f"{' and '.join(f for f, _, _ in secondary)} are "
+                         "mutually exclusive (one strategy beyond data "
+                         "parallelism; pick params-gathered ZeRO-3, "
+                         "channel-partitioned tensor parallelism, or "
+                         "H-partitioned spatial parallelism)")
+    if secondary:
+        flag, axis, ways = secondary[0]
+        if n_proc % ways:
+            raise SystemExit(f"{flag} {ways} does not divide the "
                              f"{n_proc} processes (one per card)")
+        if axis == "spatial" and cfg.model.image_size % ways:
+            raise SystemExit(f"--sp {ways} does not divide the image "
+                             f"height ({cfg.model.image_size})")
         cfg = cfg.replace(train=dataclasses.replace(
-            cfg.train, mesh_shape=(n_proc // args.fsdp, args.fsdp),
-            mesh_axis_names=("data", "fsdp")))
-    if cfg.quant.qat and (n_proc > 1 or (args.fsdp or 0) > 1):
-        raise SystemExit("--qat under a mesh (--fsdp, or more than one "
-                         "process) is not ported yet; QAT-train on one "
-                         "card")
+            cfg.train, mesh_shape=(n_proc // ways, ways),
+            mesh_axis_names=("data", axis)))
+    if cfg.quant.qat and (n_proc > 1 or secondary):
+        raise SystemExit("--qat under a mesh (--fsdp, --tp, --sp, or more "
+                         "than one process) is not ported yet; QAT-train "
+                         "on one card")
+    # Every rank of a model or spatial group reads its data shard's rows.
+    n_sec = secondary[0][2] if secondary and secondary[0][1] != "fsdp" else 1
+    shard = ((distributed.process_index() // n_sec, n_proc // n_sec)
+             if n_proc > 1 else None)
     init_state_dict = _load_init_weights(args, cfg)
     train_recs, val_recs = _load_split(cfg, args)
     val_cache = (cfg.data.image_cache + ".val" if cfg.data.image_cache
@@ -465,18 +488,39 @@ def cmd_eval(args) -> int:
     # the detections gather to all (eval/evaluate.py:_gather_batch).
     device = distributed.initialize(args.device)
     n_proc = distributed.process_count()
-    if args.data_parallel and args.data_parallel != n_proc:
+    tp, sp = max(args.tp, 1), max(args.sp, 1)
+    if tp > 1 and sp > 1:
+        raise SystemExit("--tp and --sp are mutually exclusive (one "
+                         "secondary eval-mesh axis)")
+    # The secondary axis (channel-partitioned TP or H-partitioned spatial)
+    # composes with --data-parallel; alone it gets a (world / n, n) mesh.
+    flag, axis, ways = ("--tp", "model", tp) if tp > 1 else (
+        "--sp", "spatial", sp)
+    data = args.data_parallel or n_proc // ways
+    if data * ways != n_proc:
         raise SystemExit(
-            f"--data-parallel {args.data_parallel} does not match the world "
-            f"size {n_proc}: data-parallel eval runs one process per card "
-            f"(torchrun --nproc-per-node {args.data_parallel})")
+            (f"--data-parallel {args.data_parallel}" if args.data_parallel
+             else f"{flag} {ways}")
+            + (f" x {flag} {ways}" if args.data_parallel and ways > 1
+               else "")
+            + f" does not match the world size {n_proc}: eval runs one "
+            f"process per card (torchrun --nproc-per-node "
+            f"{(args.data_parallel or 1) * ways})")
     cfg = build_config(args)
+    if ways > 1 and cfg.model.image_size % sp:
+        raise SystemExit(f"--sp {sp} does not divide the image height "
+                         f"({cfg.model.image_size})")
     train_recs, val_recs = _load_split(cfg, args)
     # The reference reports mAP on both splits (README.md:134-190).
     records = train_recs if args.split == "train" else val_recs
     weights = _restore_params(cfg, args.allow_random_init,
                               use_ema=args.use_ema)
     quant = _build_quant(cfg, weights, device, records=train_recs)
+    mesh = None
+    if ways > 1:
+        from objectdetection_ssd_torch.parallel import mesh as mesh_lib
+        mesh = mesh_lib.create_mesh((data, ways), ("data", axis),
+                                    device_type=device.type)
     # Per-split cache suffix: the cache is keyed on the split's path list.
     cache = (cfg.data.image_cache + f".{args.split}"
              if cfg.data.image_cache else None)
@@ -484,7 +528,8 @@ def cmd_eval(args) -> int:
                            pr_curves_path=(args.pr_curves
                                            if distributed.is_primary()
                                            else None),
-                           image_cache=cache, device=device, quant=quant)
+                           image_cache=cache, device=device, quant=quant,
+                           mesh=mesh)
     if not distributed.is_primary():
         # Every process computed the same mAP; the primary reports.
         return 0
@@ -608,6 +653,22 @@ def main(argv: Optional[List[str]] = None) -> int:
                               "over an fsdp mesh axis of this size; the N "
                               "processes form an (N/fsdp, fsdp) = (data, "
                               "fsdp) mesh (run under torchrun)")
+    p_train.add_argument("--tp", type=int, default=0,
+                         help="tensor parallelism: partition conv "
+                              "channels (params AND compute) over a model "
+                              "mesh axis of this size; the N processes form "
+                              "an (N/tp, tp) = (data, model) mesh (run "
+                              "under torchrun); mutually exclusive with "
+                              "--fsdp")
+    p_train.add_argument("--sp", type=int, default=0,
+                         help="spatial parallelism: partition the image H "
+                              "dim (and every conv's compute, with a halo "
+                              "exchange) over a spatial mesh axis of this "
+                              "size; the N processes form an (N/sp, sp) = "
+                              "(data, spatial) mesh (run under torchrun); "
+                              "params replicate over the axis; use when "
+                              "per-example activation memory is the wall; "
+                              "mutually exclusive with --fsdp/--tp")
     p_train.add_argument("--device-prefetch", dest="device_prefetch",
                          action="store_true", default=None,
                          help="copy each batch to the card on its own "
@@ -685,9 +746,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     p_eval.add_argument("--data-parallel", type=int, default=0,
                         metavar="N",
                         help="evaluate data-parallel over N processes, one "
-                             "per card (run under torchrun with N "
-                             "processes; N must equal the world size); the "
+                             "per card (run under torchrun; N, times --tp "
+                             "or --sp, must equal the world size); the "
                              "batch size rounds up to a multiple of N")
+    p_eval.add_argument("--tp", type=int, default=0, metavar="N",
+                        help="tensor-parallel inference: partition conv "
+                             "channels over an N-process model mesh axis "
+                             "(composes with --data-parallel into a "
+                             "(data, model) mesh)")
+    p_eval.add_argument("--sp", type=int, default=0, metavar="N",
+                        help="spatially-partitioned inference: shard the "
+                             "image H dim over an N-process spatial mesh "
+                             "axis (halo exchange; composes with "
+                             "--data-parallel into a (data, spatial) "
+                             "mesh); mutually exclusive with --tp")
     _int8_flags(p_eval)
     p_eval.set_defaults(fn=cmd_eval)
 

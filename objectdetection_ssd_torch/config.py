@@ -216,7 +216,8 @@ class TrainConfig:
     seed: int = 10
     # The mesh of a multi-process run (`parallel/mesh.py`), one process per
     # card: None = every process on 'data' (DDP); ("data", "fsdp") axes
-    # shard the parameters over 'fsdp' (FSDP2).
+    # shard the parameters over 'fsdp' (FSDP2); ("data", "model") the conv
+    # channels (tensor parallelism); ("data", "spatial") the image rows.
     mesh_shape: Optional[Tuple[int, ...]] = None
     mesh_axis_names: Tuple[str, ...] = ("data",)
     # A second input-pipeline stage on its own thread that copies each

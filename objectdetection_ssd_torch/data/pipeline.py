@@ -205,9 +205,11 @@ class Loader:
     ``worker_seconds`` sums the seconds the examples took to prepare, in
     the workers or in this process.
 
-    ``shard=(index, count)``: one process of a data-parallel job (one per
-    card) — this Loader prepares only rows ``[index * b / count,
-    (index + 1) * b / count)`` of every global batch of ``b`` rows.  The
+    ``shard=(index, count)``: one data shard of a multi-process job (one
+    process per card; `parallel.mesh.data_shard`, the same for every rank
+    of a ``model`` or ``spatial`` group) — this Loader prepares only rows
+    ``[index * b / count, (index + 1) * b / count)`` of every global
+    batch of ``b`` rows.  The
     permutation and the augmentation seeds are drawn for the whole global
     batch before the rows are cut, so each process's rows are bit-equal
     to those rows of the single-process batch.  Each batch then carries

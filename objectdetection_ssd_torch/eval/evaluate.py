@@ -6,11 +6,15 @@ card) run batched on the device; the fixed-size detection tensors come
 back to the host once per batch, and `voc_map` scores them in numpy.
 
 Under a process group (one process per card,
-`parallel.distributed.initialize`) each rank prepares and detects its rows
-of every batch (`local_shard_bounds`), and the detections and the padded
-ground truth are gathered to every rank (`_gather_batch`), so each
-rank computes the same mAP.  ``local_only=True`` keeps one process's
-evaluation (the primary-only side eval of ``train --eval-map-every``).
+`parallel.distributed.initialize`) each data shard prepares and detects
+its rows of every batch, and the detections and the padded ground truth
+are gathered to every rank (`_gather_batch`), so each rank computes the
+same mAP.  Without a mesh every rank is a data shard; on a ``data x
+model`` or ``data x spatial`` mesh (the Detector's) the ranks of one
+``model`` or ``spatial`` group detect the same rows together and only the
+first of them contributes its rows to the gather, so each row is counted
+once.  ``local_only=True`` keeps one process's evaluation (the
+primary-only side eval of ``train --eval-map-every``).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from objectdetection_ssd_torch.eval.voc_map import voc_map, voc_map_sweep
 from objectdetection_ssd_torch.infer.detector import Detector
 from objectdetection_ssd_torch.infer.postprocess import Detections
 from objectdetection_ssd_torch.parallel import distributed
+from objectdetection_ssd_torch.parallel import mesh as mesh_lib
 from objectdetection_ssd_torch.utils.metrics import logger
 
 
@@ -75,19 +80,28 @@ def local_detection_rows(dets: Detections) -> Detections:
     return Detections(*(t.cpu().numpy() for t in dets))
 
 
-def _gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows of ``t`` (on the process group's device), in
-    rank order."""
+def _gather_rows(t: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """Every ``stride``-th rank's rows of ``t`` (on the process group's
+    device), in rank order: every data shard's once, on a mesh whose
+    ``model`` or ``spatial`` groups are ``stride`` ranks wide."""
     parts = [torch.empty_like(t) for _ in range(distributed.process_count())]
     dist.all_gather(parts, t.contiguous())
-    return torch.cat(parts)
+    return torch.cat(parts[::stride])
 
 
-def _gather_batch(dets: Detections, local, dev):
-    """Every rank's detections and ground truth of one global batch: the
-    ground truth padded to the batch's largest count (agreed by an
-    all-reduce).  Returns the detections as numpy and ``(boxes, classes)``
-    per row."""
+def _data_shard(detector) -> Tuple[int, int]:
+    """(index, count) of this rank's data shard: its coordinate on the
+    Detector's mesh, else one shard per process."""
+    if getattr(detector, "mesh", None) is not None:
+        return mesh_lib.data_shard(detector.mesh)
+    return distributed.process_index(), distributed.process_count()
+
+
+def _gather_batch(dets: Detections, local, dev, stride: int = 1):
+    """Every data shard's detections and ground truth of one global batch
+    (``stride``: the ranks per data shard): the ground truth padded to the
+    batch's largest count (agreed by an all-reduce).  Returns the
+    detections as numpy and ``(boxes, classes)`` per row."""
     maxb = torch.tensor([max(1, max(len(c) for _, _, c in local))],
                         device=dev)
     dist.all_reduce(maxb, op=dist.ReduceOp.MAX)
@@ -101,10 +115,11 @@ def _gather_batch(dets: Detections, local, dev):
         gtc[r, :len(classes)] = classes
     # Gloo takes no bool: the valid mask travels as uint8.
     rows = Detections(*(_gather_rows(
-        t.to(torch.uint8) if t.dtype == torch.bool else t) for t in dets))
+        t.to(torch.uint8) if t.dtype == torch.bool else t, stride)
+        for t in dets))
     g_dets = local_detection_rows(rows._replace(valid=rows.valid.bool()))
     g_gtb, g_gtc, g_gtn = (
-        _gather_rows(torch.from_numpy(a).to(dev)).cpu().numpy()
+        _gather_rows(torch.from_numpy(a).to(dev), stride).cpu().numpy()
         for a in (gtb, gtc, gtn))
     return g_dets, [(g_gtb[i, :n], g_gtc[i, :n])
                     for i, n in enumerate(g_gtn.tolist())]
@@ -113,12 +128,17 @@ def _gather_batch(dets: Detections, local, dev):
 def _evaluate_batches(detector, records, bs, prep, multihost,
                       det_boxes, det_classes, det_scores,
                       gt_boxes, gt_classes) -> int:
-    """The batch loop: this process prepares and detects its rows of each
-    batch of ``bs`` (all of them without ``multihost``), the tail padded
-    by repeating the last record (one shape); under ``multihost`` the
-    detections and the ground truth are gathered to every rank
-    (`_gather_batch`).  Returns the number of batches."""
-    lo, hi = distributed.local_shard_bounds(bs) if multihost else (0, bs)
+    """The batch loop: this process prepares and detects its data shard's
+    rows of each batch of ``bs`` (all of them without ``multihost``), the
+    tail padded by repeating the last record (one shape); under
+    ``multihost`` the detections and the ground truth are gathered to
+    every rank (`_gather_batch`).  Returns the number of batches."""
+    lo, hi, stride = 0, bs, 1
+    if multihost:
+        index, count = _data_shard(detector)
+        per = bs // count
+        lo, hi = index * per, (index + 1) * per
+        stride = distributed.process_count() // count
     local_records = [(i, records[i])
                      for start in range(0, len(records), bs)
                      for k in range(lo, hi)
@@ -135,7 +155,8 @@ def _evaluate_batches(detector, records, bs, prep, multihost,
             dets = detector.detect_batch(np.stack([l[0] for l in local]))
             if multihost:
                 # The comm device: NCCL gathers on the card, gloo on the CPU.
-                dets, gt = _gather_batch(dets, local, detector.device)
+                dets, gt = _gather_batch(dets, local, detector.device,
+                                         stride)
             else:
                 dets = local_detection_rows(dets)
                 gt = [(norm, classes) for _, norm, classes in local]
@@ -161,7 +182,7 @@ def evaluate_records(config: Config,
                      image_cache: Optional[str] = None,
                      device: DeviceLike = None,
                      quant: Optional[Mapping] = None,
-                     local_only: bool = False):
+                     local_only: bool = False, mesh=None):
     """Returns (per-class AP, mAP) over ``records``.
 
     Ground truth as the reference protocol has it: difficult objects are
@@ -170,8 +191,10 @@ def evaluate_records(config: Config,
 
     ``detector``: reuse a Detector (its model takes ``state_dict`` when one
     is given); otherwise one is built on ``device`` (default ``cuda``) with
-    `exact_eval_postprocess` and the int8 scale tree ``quant``
-    (`infer/quant.py`; None: float).
+    `exact_eval_postprocess`, the int8 scale tree ``quant``
+    (`infer/quant.py`; None: float) and ``mesh`` (a ``data x model`` or
+    ``data x spatial`` mesh: the Detector's tensor or spatial
+    parallelism, with the batches split over the ``data`` axis).
 
     ``iou_sweep=True`` also scores the detections over the 0.50:0.05:0.95
     IoU ladder (`voc_map_sweep`) and returns
@@ -186,21 +209,21 @@ def evaluate_records(config: Config,
 
     Under a process group the evaluation is data-parallel
     (`_evaluate_batches`; the batch size rounds up to a multiple of the
-    world size) and collective: every rank calls it and gets the same
+    data shards) and collective: every rank calls it and gets the same
     result.  ``local_only``: this process alone, as without a group.
     """
     if detector is None:
         detector = Detector(config, state_dict,
                             postprocess_config=exact_eval_postprocess(
                                 config.postprocess),
-                            device=device, quant=quant)
+                            device=device, quant=quant, mesh=mesh)
     elif state_dict is not None:
-        detector.model.load_state_dict(state_dict, strict=True)
+        detector.load_weights(state_dict)
     bs = batch_size or config.data.batch_size
     multihost = dist.is_initialized() and not local_only
     if multihost:
-        ways = distributed.process_count()
-        bs = -(-bs // ways) * ways      # round up: every rank gets rows
+        ways = _data_shard(detector)[1]
+        bs = -(-bs // ways) * ways      # round up: every shard gets rows
     size = config.model.image_size
     if keep_difficult is None:
         keep_difficult = config.data.keep_difficult

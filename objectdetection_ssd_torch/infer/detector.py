@@ -1,15 +1,20 @@
 """User-facing detection API: images -> final boxes, on the card.
 
 The port of `objectdetection_ssd_tpu/infer/detector.py` (`Detector`,
-`mirror_permutation`, `forward_for_postprocess`) without its tensor- and
-spatial-parallel meshes.  The model forward and `postprocess` run on one
-device (``cuda`` unless the caller passes ``device="cpu"``); only the
-fixed-size detection tensors come back to the host, once per batch.
-Data-parallel serving is one Detector per process (one per card): each
-detects its rows of the global batch
-(`parallel.distributed.local_shard_bounds`), and `eval/evaluate.py`
-gathers the rows to every rank.  With ``quant=`` (a scale tree of
-`infer/quant.py`) the quantized convs run int8 on kernel K3.
+`mirror_permutation`, `forward_for_postprocess`).  The model forward and
+`postprocess` run on one device (``cuda`` unless the caller passes
+``device="cpu"``); only the fixed-size detection tensors come back to the
+host, once per batch.  Data-parallel serving is one Detector per process
+(one per card): each detects its rows of the global batch
+(`parallel.mesh.data_shard`), and `eval/evaluate.py` gathers the rows to
+every rank.  With ``mesh=`` holding a ``model`` or ``spatial`` axis (JAX
+`detector.py:200-221`) the forward is partitioned over that axis: each
+rank holds its output channels of every conv (tensor parallelism,
+`parallel/tensor_parallel.py`) or computes its rows of every map
+(`parallel/spatial.py`), and every rank of the group gets its data
+shard's whole outputs, on which it runs `postprocess` (K1 once per
+batch).  With ``quant=`` (a scale tree of `infer/quant.py`) the quantized
+convs run int8 on kernel K3, on the channel or row shards under a mesh.
 Weights come in as a ``state_dict`` (e.g. `models.convert.from_flax_params`)
 or from a `train.checkpoint.CheckpointManager` directory
 (`Detector.from_checkpoint`).
@@ -32,6 +37,8 @@ from objectdetection_ssd_torch.infer.postprocess import (Detections,
 from objectdetection_ssd_torch.models.ssd import build_model
 from objectdetection_ssd_torch.ops import boxes as box_ops
 from objectdetection_ssd_torch.ops import priors as priors_lib
+from objectdetection_ssd_torch.parallel.data_parallel import (
+    partition_model, shard_like)
 
 
 def mirror_permutation(priors_np: np.ndarray) -> Optional[np.ndarray]:
@@ -119,7 +126,8 @@ def checkpoint_weights(config: Config, checkpoint_dir: Optional[str] = None,
 
 class Detector:
     """SSD forward (the registry model of ``config.model``) + postprocess
-    on one device."""
+    on one device, partitioned over a mesh's ``model`` or ``spatial`` axis
+    when given one."""
 
     @classmethod
     def from_checkpoint(cls, config: Config,
@@ -137,20 +145,30 @@ class Detector:
     def __init__(self, config: Config, state_dict: Mapping[str, torch.Tensor],
                  postprocess_config: Optional[PostprocessConfig] = None,
                  device: DeviceLike = None, priors: Optional[np.ndarray] = None,
-                 quant: Optional[Mapping] = None):
+                 quant: Optional[Mapping] = None, mesh=None):
         """``quant``: an int8 scale tree (`infer.quant.act_scales`, chained
         or not): the convs it names run int8 on K3, the others float.  The
         model then holds its weights in f32, as the JAX package quantizes
         them from its f32 parameters, and casts the float convs' weights to
-        the compute dtype at use."""
+        the compute dtype at use.
+
+        ``mesh``: a `parallel.mesh.create_mesh` mesh over the joined
+        process group (``device`` is then this rank's card).  With a
+        ``model`` axis the weights are sharded over it after loading (each
+        rank keeps its channels); with a ``spatial`` axis each rank
+        computes its rows.  Every rank of the group calls `detect_batch`
+        with the same images (its data shard's rows)."""
         from objectdetection_ssd_torch.infer.quant import attach_scales
         self.device = resolve_device(device)
         self.config = config
         self.pp_config = postprocess_config or config.postprocess
         self.quant = quant
+        self.mesh = mesh
         self.model = build_model(config.model, device=self.device,
                                  train=quant is not None).eval()
         self.model.load_state_dict(state_dict, strict=True)
+        if mesh is not None:
+            partition_model(self.model, mesh)
         if quant is not None:
             attach_scales(self.model, quant)
         if priors is None:
@@ -164,6 +182,15 @@ class Detector:
             if perm is not None:
                 self.mirror_perm = torch.from_numpy(perm).long().to(
                     self.device)
+
+    def load_weights(self, state_dict: Mapping[str, torch.Tensor]) -> None:
+        """Load a whole (single-device) state_dict into the model, each
+        tensor laid out as the model holds it (this rank's channels under
+        tensor parallelism)."""
+        live = self.model.state_dict()
+        self.model.load_state_dict(
+            {k: shard_like(v, live[k]) if k in live else v
+             for k, v in state_dict.items()}, strict=True)
 
     @torch.inference_mode()
     def forward(self, images) -> tuple:

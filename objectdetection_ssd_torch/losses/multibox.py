@@ -76,11 +76,14 @@ def multibox_loss(pred_offsets: torch.Tensor,
                   ) -> MultiboxLoss:
     """The SSD multibox loss of a padded batch.
 
-    ``group``: the process group of a data-parallel step, whose ranks hold
-    the rows of one global batch.  The positive count is then summed over
-    the group before it divides, so the terms returned are this rank's
-    share of the global-batch loss (their sum over the ranks is the loss
-    of the whole batch) and ``num_pos`` is the global count.
+    ``group``: the process group whose ranks hold the data shards of one
+    global batch: every rank of a data-parallel step, the ``data`` group
+    of a tensor- or spatial-parallel one (the ranks of a ``model`` or
+    ``spatial`` group hold the same rows, and counting over them would
+    count each image once per rank).  The positive count is then summed
+    over the group before it divides, so the terms returned are this
+    shard's share of the global-batch loss (their sum over the shards is
+    the loss of the whole batch) and ``num_pos`` is the global count.
 
     Args:
       pred_offsets: (B, P, 4) predicted gcxgcy regression outputs.

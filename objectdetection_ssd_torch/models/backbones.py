@@ -84,6 +84,7 @@ class VGG16Trunk(nn.Module):
                 cin = features
         self.conv_fc6 = TorchConv(512, 1024, kernel=3, padding=4, dilation=4)
         self.conv_fc7 = TorchConv(1024, 1024, kernel=1)
+        self.part = None         # the pools' partition (`set_partition`)
 
     def _block(self, x: torch.Tensor, name: str, n: int) -> torch.Tensor:
         for i in range(n):
@@ -101,9 +102,10 @@ class VGG16Trunk(nn.Module):
             if stage == 4:
                 return x                                        # conv4_3
             # 300 -> 150 -> 75 -> 38 (ceil mode, Model.py:137)
-            return max_pool(x, 2, 2, ceil_mode=stage == 3)
-        x = max_pool(x, 2, 2)                                   # 38 -> 19
-        x = max_pool(self._block(x, "conv5", 3), 3, 1, padding=1)  # 19 -> 19
+            return max_pool(x, 2, 2, ceil_mode=stage == 3, part=self.part)
+        x = max_pool(x, 2, 2, part=self.part)                   # 38 -> 19
+        x = max_pool(self._block(x, "conv5", 3), 3, 1, padding=1,
+                     part=self.part)                            # 19 -> 19
         x = F.relu(self.conv_fc6(x))
         x = F.relu(self.conv_fc7(x))
         return self._cut(x, 5)
@@ -170,10 +172,11 @@ class ResNet34Trunk(nn.Module):
                 self.add_module(name, BasicBlock(cin, f, stride))
                 self.block_names.append(name)
                 cin = f
+        self.part = None         # the pool's partition (`set_partition`)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.stem_bn(self.stem_conv(x)))
-        x = max_pool(x, 3, 2, padding=1)
+        x = max_pool(x, 3, 2, padding=1, part=self.part)
         for name in self.block_names:
             x = getattr(self, name)(x)
         return x

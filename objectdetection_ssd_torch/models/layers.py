@@ -10,6 +10,14 @@ the int8 and straight-through (QAT) branches of a quantized conv (JAX
 `Int8Conv`, kernel K3), int8 max pooling, the L2Norm arithmetic, flax's
 BatchNorm and Dropout semantics (the ResNet-34 family) and the NHWC head
 flatten.
+
+Tensor and spatial parallelism hook in here.  A model partitioned over a
+mesh (`set_partition`) gives its convs, L2Norms, dropouts and the callers
+of `max_pool` and `flatten_head` a ``part``: a
+`parallel/tensor_parallel.py:TensorParallel` (this rank's output channels
+of every conv) or a `parallel/spatial.py:SpatialParallel` (this rank's
+rows of every map).  Under tensor parallelism the parameters are DTensors
+holding this rank's channels, which the layers read through `_local`.
 """
 
 from __future__ import annotations
@@ -20,12 +28,13 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
-import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from objectdetection_ssd_torch.ops import int8_conv as k3
 from objectdetection_ssd_torch.ops.dw_cuda import conv3x3p1
+from objectdetection_ssd_torch.parallel.collectives import all_reduce_sum
 
 # flax's truncated-normal stddev correction: the std of a unit normal cut to
 # [-2, 2] (`jax.nn.initializers.variance_scaling`).
@@ -54,6 +63,16 @@ def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``t`` in ``dtype``: ``t`` itself where it already is, so that an
     exported program (`infer/export.py`) records no operator for it."""
     return t if t.dtype == dtype else t.to(dtype)
+
+
+def _local(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """This rank's part of a tensor-parallel parameter or buffer (a
+    DTensor, `parallel/tensor_parallel.py:shard_model`), else ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _spatial(part) -> bool:
+    return part is not None and part.kind == "spatial"
 
 
 def _ste_round(x: torch.Tensor) -> torch.Tensor:
@@ -100,6 +119,17 @@ class TorchConv(nn.Conv2d):
     * straight-through (QAT): both operands fake-quantized in f32 with the
       scales held constant, an f32 conv, the bias, then ``dtype``;
       ``out_scale`` is ignored.
+
+    ``part`` (`set_partition`): under tensor parallelism the conv holds
+    its output channels of a DTensor weight and gathers its input's
+    channels when it gets a shard of them (narrower than
+    ``in_channels``); under spatial parallelism it reads the input rows
+    its output rows need (`SpatialParallel.extend`: a halo exchange, zero
+    rows outside the map) and runs with padding 0 in H.  The K2 route
+    runs there on this rank's rows plus one halo row each side, with a
+    zero gradient row at each halo position, so its dW sums exactly this
+    rank's rows; K3 runs on the int8 rows, padded with zero columns in W,
+    at padding 0.
     """
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
@@ -116,6 +146,7 @@ class TorchConv(nn.Conv2d):
                          padding=padding, dilation=dilation, bias=use_bias)
         self.quant: Optional[ConvQuant] = None
         self._int8_weight = None     # (weight version key, w_q, s_w)
+        self.part = None
 
     def int8_weight(self):
         """(``w_q`` int8 (Cout, kh, kw, Cin), ``s_w`` f32 (Cout,)) of the
@@ -130,7 +161,7 @@ class TorchConv(nn.Conv2d):
                 raise RuntimeError("quantize the int8 weights (an eager "
                                    "int8_weight() call) before tracing")
             return self._int8_weight[1:]
-        w = self.weight
+        w = _local(self.weight)
         key = (w._version, w.data_ptr(), w.device, w.dtype)
         if self._int8_weight is None or self._int8_weight[0] != key:
             with torch.no_grad():
@@ -138,9 +169,13 @@ class TorchConv(nn.Conv2d):
         return self._int8_weight[1:]
 
     def _quant_forward(self, x: torch.Tensor, q: ConvQuant) -> torch.Tensor:
-        bias = None if self.bias is None else _cast(self.bias, torch.float32)
+        bias = None if self.bias is None else _cast(_local(self.bias),
+                                                    torch.float32)
         geometry = (self.stride[0], self.padding[0], self.dilation[0])
         if q.straight_through:
+            if self.part is not None:
+                raise NotImplementedError("QAT under tensor or spatial "
+                                          "parallelism is not ported")
             w = self.weight.float()
             s_w = k3.weight_scale(w)[:, None, None, None]
             y = F.conv2d(_ste_fake_quant(x.float(), q.act_scale),
@@ -151,15 +186,43 @@ class TorchConv(nn.Conv2d):
         w_q, s_w = self.int8_weight()
         x_q = (x if x.dtype == torch.int8
                else k3.quantize_activation(x, q.act_scale))
-        return k3.int8_conv(x_q, w_q, q.act_scale * s_w,
-                            None if bias is None else bias.detach(),
-                            *geometry, q.dtype, q.out_scale)
+        bias = None if bias is None else bias.detach()
+        if not _spatial(self.part):
+            return k3.int8_conv(x_q, w_q, q.act_scale * s_w, bias,
+                                *geometry, q.dtype, q.out_scale)
+        stride, padding, dilation = geometry
+        ext, rows = self.part.extend(x_q, self.kernel_size[0], stride,
+                                     padding, dilation, pad_w=padding)
+        y = k3.int8_conv(ext, w_q, q.act_scale * s_w, bias, stride, 0,
+                         dilation, q.dtype, q.out_scale)
+        return self.part.narrow_rows(y, 0, rows)
+
+    def _spatial_forward(self, x: torch.Tensor, weight: torch.Tensor,
+                         bias: Optional[torch.Tensor]) -> torch.Tensor:
+        part = self.part
+        if self.dw_route:
+            # Rows [a - 1, b + 1): K2's p1 conv over them, whose first and
+            # last output rows are dropped.
+            ext, rows = part.extend(x, 3, 1, 1, 1)
+            y = part.narrow_rows(conv3x3p1(ext, weight), 1, rows)
+            return y if bias is None else y + bias[:, None, None]
+        stride, padding, dilation = (self.stride[0], self.padding[0],
+                                     self.dilation[0])
+        ext, rows = part.extend(x, self.kernel_size[0], stride, padding,
+                                dilation)
+        y = F.conv2d(ext, weight, bias, stride, (0, padding), dilation)
+        return part.narrow_rows(y, 0, rows)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.part is not None:
+            x = self.part.full_channels(x, self.in_channels)
         if self.quant is not None:
             return self._quant_forward(x, self.quant)
-        weight = _cast(self.weight, x.dtype)
-        bias = None if self.bias is None else _cast(self.bias, x.dtype)
+        weight = _cast(_local(self.weight), x.dtype)
+        bias = (None if self.bias is None
+                else _cast(_local(self.bias), x.dtype))
+        if _spatial(self.part):
+            return self._spatial_forward(x, weight, bias)
         if self.dw_route:
             # The bias is added outside the Function, as the JAX
             # `_DWPallasConv` adds it (`layers.py:160-162`).
@@ -182,7 +245,7 @@ class TorchConv(nn.Conv2d):
 
 
 def max_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0,
-             ceil_mode: bool = False) -> torch.Tensor:
+             ceil_mode: bool = False, part=None) -> torch.Tensor:
     """Max pool with torch semantics: -inf padding, and ``ceil_mode``
     extends the grid at the bottom/right (reference pool3, `Model.py:137`).
     The JAX counterpart pads explicitly to get the same windows.
@@ -190,7 +253,18 @@ def max_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0,
     An int8 input (the requant-chained graph; the max commutes with the
     monotone quantization) is pooled through f16, which holds every value
     in [-127, 127] exactly: CUDA's max pool takes no int8.  Padding never
-    wins, as the JAX pool's -128 padding does not."""
+    wins, as the JAX pool's -128 padding does not.
+
+    Under spatial parallelism (``part``) the pool reads the input rows its
+    output rows need, ``-inf`` (int8: -128) outside the map, and pools
+    them with padding 0 in H; channel shards pool as they are."""
+    if _spatial(part):
+        fill = -128 if x.dtype == torch.int8 else -math.inf
+        ext, rows = part.extend(x, window, stride, padding, 1, ceil_mode,
+                                fill=fill)
+        y = max_pool(ext, (window, window), (stride, stride), (0, padding),
+                     ceil_mode)
+        return part.narrow_rows(y, 0, rows)
     if x.dtype == torch.int8:
         return F.max_pool2d(x.half(), window, stride, padding=padding,
                             ceil_mode=ceil_mode).to(torch.int8)
@@ -205,6 +279,10 @@ class L2Norm(nn.Module):
     ``x / sqrt(sum(x^2) + eps) * scale`` with the sum in f32 and the norm
     cast back to ``x.dtype`` — the JAX `L2Norm` (`layers.py:316-322`).  Not
     `F.normalize`, which clamps the norm instead of adding ``eps``.
+
+    Under tensor parallelism (``part``) a channel-shard input is
+    normalized with its scale's shard: the squares are summed over the
+    local channels and the sums all-reduced over the ``model`` group.
     """
 
     def __init__(self, channels: int, scale_init: float = 20.0,
@@ -213,6 +291,7 @@ class L2Norm(nn.Module):
         self.scale_init = scale_init
         self.epsilon = epsilon
         self.scale = nn.Parameter(torch.full((channels,), scale_init))
+        self.part = None
 
     def reset_parameters(self) -> None:
         with torch.no_grad():
@@ -220,8 +299,10 @@ class L2Norm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:     # (B, C, H, W)
         sumsq = torch.sum(torch.square(x.float()), dim=1, keepdim=True)
+        if self.part is not None and x.shape[1] != self.scale.shape[0]:
+            sumsq = all_reduce_sum(sumsq, self.part.group)
         norm = torch.sqrt(sumsq + self.epsilon)
-        return (x / _cast(norm, x.dtype)) * _cast(self.scale,
+        return (x / _cast(norm, x.dtype)) * _cast(_local(self.scale),
                                                   x.dtype)[:, None, None]
 
 
@@ -251,8 +332,12 @@ class BatchNorm(nn.Module):
     (`parallel/data_parallel.py`), None on one process.  With a group,
     train mode takes its statistics over the global batch, as flax's
     BatchNorm does under a JAX mesh: each rank sums ``x`` and ``x^2`` over
-    its rows, the sums are added across the group (a differentiable
-    all-reduce) and divided by the global count.
+    its rows, the sums and the counts are added across the group (a
+    differentiable all-reduce), and the sums divided by the count.  The
+    group is every rank of a data-parallel or spatial step (the ranks of a
+    ``spatial`` group hold other rows of the same images, and as many as
+    they own), the ``data`` group of a tensor-parallel one (whose
+    parameters and statistics are DTensors of this rank's channels).
     """
 
     MOMENTUM = 0.99
@@ -274,32 +359,32 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = _local(self.weight), _local(self.bias)
+        running_mean = _local(self.running_mean)
+        running_var = _local(self.running_var)
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0,
-                                self.EPSILON)
+            return F.batch_norm(x, running_mean, running_var, weight, bias,
+                                False, 0.0, self.EPSILON)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.group is None:
             mean = xf.mean(dim=(0, 2, 3))
             mean_sq = (xf * xf).mean(dim=(0, 2, 3))
         else:
-            count = xf.numel() // xf.shape[1] * dist.get_world_size(
+            sums = xf.sum(dim=(0, 2, 3))
+            sums = all_reduce_sum(
+                torch.stack([sums, (xf * xf).sum(dim=(0, 2, 3)),
+                             torch.full_like(sums,
+                                             xf.numel() // xf.shape[1])]),
                 self.group)
-            sums = dist_nn.all_reduce(
-                torch.stack([xf.sum(dim=(0, 2, 3)),
-                             (xf * xf).sum(dim=(0, 2, 3))]),
-                group=self.group)
-            mean, mean_sq = sums[0] / count, sums[1] / count
+            mean, mean_sq = sums[0] / sums[2], sums[1] / sums[2]
         var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.MOMENTUM
-            self.running_mean.copy_(m * self.running_mean
-                                    + (1.0 - m) * mean.detach())
-            self.running_var.copy_(m * self.running_var
-                                   + (1.0 - m) * var.detach())
-        mul = torch.rsqrt(var + self.EPSILON) * self.weight
+            running_mean.copy_(m * running_mean + (1.0 - m) * mean.detach())
+            running_var.copy_(m * running_var + (1.0 - m) * var.detach())
+        mul = torch.rsqrt(var + self.EPSILON) * weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] \
-            + self.bias[:, None, None]
+            + bias[:, None, None]
         return y.to(x.dtype)
 
 
@@ -317,13 +402,19 @@ class Dropout(nn.Module):
     ``(index + 1) * b`` of a global batch of ``count * b`` rows
     (`parallel/data_parallel.py`); the mask is drawn at the global shape
     and this process keeps its rows, so every row gets the mask it gets
-    in one process."""
+    in one process.  Under tensor parallelism (``part``) it also keeps
+    its channels of the ``features`` wide mask when ``x`` is a channel
+    shard; under spatial parallelism its rows of the map (whose height is
+    its width)."""
 
-    def __init__(self, rate: float, channelwise: bool = False):
+    def __init__(self, rate: float, channelwise: bool = False,
+                 features: Optional[int] = None):
         super().__init__()
         self.rate = rate
         self.channelwise = channelwise
+        self.features = features
         self.shard: Optional[tuple] = None
+        self.part = None
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -337,17 +428,51 @@ class Dropout(nn.Module):
         b, c, h, w = x.shape
         index, count = self.shard or (0, 1)
         rows = b * count
-        shape = (rows, 1, 1, c) if self.channelwise else (rows, h, w, c)
+        part = self.part
+        width = c
+        if part is not None and part.kind == "model":
+            if self.features is None:
+                raise ValueError("dropout under tensor parallelism needs "
+                                 "its features")
+            width = self.features
+        height = w if _spatial(part) else h
+        shape = ((rows, 1, 1, width) if self.channelwise
+                 else (rows, height, w, width))
         keep_prob = 1.0 - self.rate
         # Drawn NHWC, like the JAX masks, and viewed NCHW (channels_last).
         u = torch.rand(shape, generator=generator, device=x.device)
-        keep = u[index * b:(index + 1) * b].permute(0, 3, 1, 2) < keep_prob
+        u = u[index * b:(index + 1) * b]
+        if width != c:
+            lo, hi = part.channels(width)
+            u = u[..., lo:hi]
+        if _spatial(part) and not self.channelwise:
+            lo, hi = part.rows(height)
+            u = u[:, lo:hi]
+        keep = u.permute(0, 3, 1, 2) < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
 
 
-def flatten_head(x: torch.Tensor, last: int) -> torch.Tensor:
+def flatten_head(x: torch.Tensor, last: int, part=None,
+                 channels: Optional[int] = None) -> torch.Tensor:
     """(B, k*last, H, W) -> (B, H*W*k, last), rows ordered by
     (row, col, anchor) like the priors — the reference's
-    permute(0,2,3,1)+view (`Model.py:212`) and the JAX NHWC reshape."""
+    permute(0,2,3,1)+view (`Model.py:212`) and the JAX NHWC reshape.
+
+    Under a ``part`` the head is made whole first: its rows gathered
+    (spatial), or its channels (tensor parallel) when ``x`` holds a shard
+    of its ``channels`` (the head's width, ``k * last``)."""
+    if part is not None:
+        x = part.whole(x, channels)
     return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1, last)
+
+
+def set_partition(model: nn.Module, part) -> nn.Module:
+    """Give every module of ``model`` that takes one (convs, L2Norms,
+    dropouts, the trunks and models that pool and flatten) the partition
+    ``part`` (`parallel/tensor_parallel.py`, `parallel/spatial.py`), or
+    None to run whole again."""
+    for m in model.modules():
+        if hasattr(m, "part"):
+            m.part = part
+    return model

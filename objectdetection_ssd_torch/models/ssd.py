@@ -81,7 +81,8 @@ class SSD300(nn.Module):
 
     The network computes in ``dtype``, whatever dtype its parameters are
     held in (flax's ``dtype=``).  ``freeze_stages`` and ``dw_pallas_convs``
-    go to the trunk (`VGG16Trunk`).
+    go to the trunk (`VGG16Trunk`).  ``part``: the model's partition over
+    a mesh (`models/layers.py:set_partition`), None when it runs whole.
     """
 
     def __init__(self, num_classes: int = NUM_CLASSES_WITH_BG,
@@ -109,6 +110,7 @@ class SSD300(nn.Module):
             self.add_module(f"conf_head_{i}", TorchConv(
                 cin, num_classes * k, kernel=3, padding=1,
                 kernel_init="xavier_uniform"))
+        self.part = None
         self.reset_parameters(generator)
 
     def reset_parameters(self,
@@ -127,6 +129,8 @@ class SSD300(nn.Module):
         stage interiors in the backward (`VGG16Trunk.forward`)."""
         del generator
         x = prepare_input(images, self.dtype)
+        if self.part is not None:
+            x = self.part.enter(x)
         conv4_3, x = self.trunk(x, remat=remat)
         return ssd300_post_trunk(self, conv4_3, x)
 
@@ -134,17 +138,23 @@ class SSD300(nn.Module):
 def ssd300_post_trunk(model: SSD300, conv4_3: torch.Tensor, x: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Everything after the VGG trunk: L2Norm, extra pyramid, heads
-    (`models/ssd.py:65-108`)."""
-    taps: List[torch.Tensor] = [model.l2norm_4_3(conv4_3), x]
-    for name, *_ in _EXTRAS:
+    (`models/ssd.py:65-108`).  Under tensor parallelism each tap is
+    gathered once for the convs that read it."""
+    part = model.part
+    full = ((lambda t, c: t) if part is None else part.full_channels)
+    x = full(x, 1024)
+    taps: List[torch.Tensor] = [full(model.l2norm_4_3(conv4_3), 512), x]
+    for name, _, _, out, _, _ in _EXTRAS:
         x = F.relu(getattr(model, f"{name}_1")(x))
-        x = F.relu(getattr(model, f"{name}_2")(x))
+        x = full(F.relu(getattr(model, f"{name}_2")(x)), out)
         taps.append(x)
     locs, confs = [], []
-    for i, tap in enumerate(taps):
-        locs.append(flatten_head(getattr(model, f"loc_head_{i}")(tap), 4))
+    for i, (tap, k) in enumerate(zip(taps, _TAP_ANCHORS)):
+        locs.append(flatten_head(getattr(model, f"loc_head_{i}")(tap), 4,
+                                 part, 4 * k))
         confs.append(flatten_head(getattr(model, f"conf_head_{i}")(tap),
-                                  model.num_classes))
+                                  model.num_classes, part,
+                                  model.num_classes * k))
     return torch.cat(locs, dim=1), torch.cat(confs, dim=1)
 
 
@@ -163,7 +173,7 @@ class _NeckBlock(nn.Module):
         self.conv = TorchConv(in_features, features, kernel=3, stride=stride,
                               padding=1)
         self.bn = BatchNorm(features)
-        self.drop = Dropout(dropout_rate, channelwise=True)
+        self.drop = Dropout(dropout_rate, channelwise=True, features=features)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -178,7 +188,7 @@ class _LocHead(nn.Module):
         super().__init__()
         self.conv = TorchConv(in_features, out, kernel=3, padding=1)
         self.bn = BatchNorm(out)
-        self.drop = Dropout(dropout_rate, channelwise=True)
+        self.drop = Dropout(dropout_rate, channelwise=True, features=out)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -205,7 +215,7 @@ class SSDResNet34(nn.Module):
         self.freeze_backbone = freeze_backbone
         self.dtype = dtype
         self.trunk = ResNet34Trunk()
-        self.trunk_drop = Dropout(dropout_rate)
+        self.trunk_drop = Dropout(dropout_rate, features=512)
         self.neck0 = _NeckBlock(512, 256, 1, dropout_rate)       # 7x7
         # The reference applies its stride-2 neck conv twice with the same
         # weights (`Model.py:91-96`): one module, called twice.
@@ -217,6 +227,7 @@ class SSDResNet34(nn.Module):
             self.add_module(f"conf_{tap}", TorchConv(
                 256, num_classes * k, kernel=3, padding=1,
                 bias_init=-2.0))                                 # Model.py:39
+        self.part = None
         self.reset_parameters(generator)
 
     def reset_parameters(self,
@@ -242,6 +253,9 @@ class SSDResNet34(nn.Module):
         the VGG trunk's, as in the JAX package."""
         del remat
         x = prepare_input(images, self.dtype)
+        part = self.part
+        if part is not None:
+            x = part.enter(x)
         if self.freeze_backbone:
             with torch.no_grad():
                 feats = self.trunk(x)                           # (B, 512, 7, 7)
@@ -249,15 +263,21 @@ class SSDResNet34(nn.Module):
             feats = self.trunk(x)
         feats = self.trunk_drop(F.relu(feats), generator)
         x = self.neck0(feats, generator)
-        x4 = self.neck_down(x, generator)
-        x2 = self.neck_down(x4, generator)
-        x1 = self.neck_down2(x2, generator)
+        # Under tensor parallelism each tap is gathered once for the three
+        # convs that read it.
+        full = ((lambda t: t) if part is None
+                else (lambda t: part.full_channels(t, 256)))
+        x4 = full(self.neck_down(x, generator))
+        x2 = full(self.neck_down(x4, generator))
+        x1 = full(self.neck_down2(x2, generator))
+        k = _RESNET_ANCHORS
         locs, confs = [], []
         for tap, t in zip(_RESNET_TAPS, (x4, x2, x1)):
             locs.append(flatten_head(getattr(self, f"loc_{tap}")(t, generator),
-                                     4))
+                                     4, part, 4 * k))
             confs.append(flatten_head(getattr(self, f"conf_{tap}")(t),
-                                      self.num_classes))
+                                      self.num_classes, part,
+                                      self.num_classes * k))
         return torch.cat(locs, dim=1), torch.cat(confs, dim=1)
 
 

@@ -15,7 +15,7 @@ A restore does not reset the learning rate (the reference overrides it on
 resume, `train_function.py:29-30`): the schedule is part of the state.
 
 Under a mesh every rank calls `save` and `restore`.  A save gathers FSDP2
-shards into whole tensors (the single-device format, so
+and tensor-parallel shards into whole tensors (the single-device format, so
 `Detector.from_checkpoint` and a resume at any world size read it), the
 primary writes, and the ranks meet at a barrier; a restore lays each
 tensor out as the state holds it.

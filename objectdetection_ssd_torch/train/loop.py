@@ -23,6 +23,12 @@ Under a mesh (``state.parallel``, `parallel/data_parallel.py`) the batch
 is this rank's rows of the global batch and the step is the global-batch
 step: the loss divides by the global positive count, the gradients are
 reduced over the ranks, and the metrics are those of the global batch.
+Under tensor or spatial parallelism (JAX `loop.py:279-287`) the batch is
+the rows of this rank's data shard, the same on every rank of its
+``model`` or ``spatial`` group; the model takes its rows of the images
+itself (`parallel/spatial.py:SpatialParallel.enter`) and gathers its
+heads, and `MeshParallel.backward` sums the gradients over the ranks that
+hold parts of them.
 """
 
 from __future__ import annotations
@@ -120,9 +126,7 @@ def train_step(state: TrainState, batch: Mapping[str, object],
         if state.parallel is None:
             loss.total.backward()
         else:
-            # DDP and FSDP2 average over the ranks: each backpropagates
-            # ``count`` times its share of the global loss.
-            (loss.total * state.parallel.count).backward()
+            state.parallel.backward(loss.total)
     if state.apply_gradients() and ema_decay:
         state.update_ema(ema_decay)
     return state, _metrics(state, loss)

@@ -28,15 +28,17 @@ real update only.  It covers parameters only, as JAX's ``ema_params`` holds
 no ``batch_stats``: BN running statistics are served live.
 
 Under a mesh (`create_train_state(mesh=...)`) the model is wrapped by
-`parallel.data_parallel.DataParallel` before the optimizer is built, so
-under FSDP2 the optimizer, its momentum, the accumulation window and the
-EMA hold this rank's shards.
+`parallel.data_parallel.wrap` before the optimizer is built, so under
+FSDP2 or tensor parallelism the optimizer (SGD with momentum, weight
+decay and the 2x-lr bias group, each on the local shards), its momentum,
+the accumulation window and the EMA hold this rank's shards.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple
+from typing import (Callable, Dict, Iterable, List, Mapping, Optional, Tuple,
+                    Union)
 
 import torch
 from torch import nn
@@ -45,7 +47,9 @@ from objectdetection_ssd_torch.config import ModelConfig, OptimConfig
 from objectdetection_ssd_torch.device import DeviceLike
 from objectdetection_ssd_torch.models.backbones import vgg_frozen_prefixes
 from objectdetection_ssd_torch.models.ssd import build_model
-from objectdetection_ssd_torch.parallel.data_parallel import DataParallel
+from objectdetection_ssd_torch.parallel.data_parallel import (DataParallel,
+                                                             MeshParallel,
+                                                             wrap)
 
 
 @dataclasses.dataclass
@@ -68,7 +72,7 @@ class TrainState:
     mini_step: int = 0
     acc_grads: Optional[List[torch.Tensor]] = None
     ema: Optional[Dict[str, torch.Tensor]] = None
-    parallel: Optional[DataParallel] = None
+    parallel: Optional[Union[DataParallel, MeshParallel]] = None
 
     def apply_gradients(self) -> bool:
         """Consume the gradients in each parameter's ``.grad``: an SGD
@@ -192,7 +196,8 @@ def create_train_state(model_config: ModelConfig, optim_config: OptimConfig,
     remat)``, as it calls the registry's models.  ``ema``: seed
     `TrainState.ema` with a copy of the initial weights.  ``mesh``: a
     `parallel.mesh.create_mesh` mesh; the model, with its weights loaded,
-    is wrapped for it (`DataParallel`) before the optimizer is built.
+    is wrapped for it (`parallel.data_parallel.wrap`) before the optimizer
+    is built.
     """
     if model is None:
         model = build_model(model_config, device=device, generator=generator,
@@ -204,7 +209,7 @@ def create_train_state(model_config: ModelConfig, optim_config: OptimConfig,
     for name, param in model.named_parameters():
         if _is_frozen(name, frozen):
             param.requires_grad_(False)
-    parallel = DataParallel(model, mesh) if mesh is not None else None
+    parallel = wrap(model, mesh) if mesh is not None else None
     optimizer, scheduler = make_optimizer(
         model.named_parameters(), optim_config, steps_per_epoch, frozen)
     ema_weights = ({n: p.detach().clone()

@@ -1,6 +1,6 @@
 """High-level Trainer: epochs, train/eval phases, checkpointing, resume —
 the port of `objectdetection_ssd_tpu/train/trainer.py:Trainer` (the
-pipeline-parallel, tensor- and spatial-parallel branches are not ported).
+pipeline-parallel branch is not ported).
 `enable_qat` turns on quantization-aware training.
 
 Per epoch: a train phase, then a loss-only eval ('test') phase over the
@@ -20,10 +20,13 @@ way.
 
 Under a process group (`parallel.distributed.initialize`, one process per
 card) the Trainer builds a mesh from `TrainConfig.mesh_shape` /
-``mesh_axis_names`` and trains the global batch data-parallel
-(`parallel/data_parallel.py`: DDP, or FSDP2 with an ``fsdp`` axis); each
-Loader must then be built with ``shard=(rank, world size)``.
-Checkpoints, TensorBoard and the log lines come from the primary only.
+``mesh_axis_names`` and trains the global batch on it
+(`parallel/data_parallel.py`: DDP, FSDP2 with an ``fsdp`` axis, tensor
+parallelism with a ``model`` axis, spatial partitioning with a
+``spatial`` one, JAX `trainer.py:96-99`, `:147-168`); each Loader must
+then be built with ``shard=parallel.mesh.data_shard(mesh)``: every rank of
+one ``model`` or ``spatial`` group reads the same rows.  Checkpoints,
+TensorBoard and the log lines come from the primary only.
 """
 
 from __future__ import annotations
@@ -93,17 +96,25 @@ class Trainer:
                                         config.train.mesh_axis_names,
                                         device_type=self.device.type)
         self.mesh = mesh
-        # Fail fast on a batch the mesh cannot split, and on a Loader that
-        # would feed rows this process does not own (JAX `trainer.py:106`).
+        # Fail fast on a batch the mesh cannot split, an image the spatial
+        # axis cannot, and on a Loader that would feed rows this process
+        # does not own (JAX `trainer.py:96-106`).
+        self.data_shard = (0, 1)
         if mesh is not None:
             mesh_lib.local_batch_size(config.data.batch_size, mesh)
+            sp = mesh_lib.spatial_ways(mesh)
+            if config.model.image_size % sp:
+                raise ValueError(
+                    f"image_size {config.model.image_size} not divisible by "
+                    f"the spatial mesh axis ({sp} ways)")
+            self.data_shard = mesh_lib.data_shard(mesh)
         if self.n_proc > 1:
-            want = (distributed.process_index(), self.n_proc)
+            want = self.data_shard
             for name, ld in (("train", train_loader), ("eval", eval_loader)):
                 if ld is not None and getattr(ld, "shard", None) != want:
                     raise ValueError(
                         f"{name}_loader must be built with shard={want} "
-                        f"when running {self.n_proc} processes "
+                        f"when running {self.n_proc} processes on the mesh "
                         "(see data/pipeline.py:Loader)")
         # The schedule's epoch clock counts real optimizer updates.
         accum = max(config.optim.grad_accum_steps, 1)
@@ -203,8 +214,8 @@ class Trainer:
         side = (torch.cuda.Stream(self.device)
                 if two_stage and self.device.type == "cuda" else None)
         stream = self._to_device(prefetch(loader.epoch(epoch)),
-                                 loader.config.batch_size // self.n_proc,
-                                 side)
+                                 loader.config.batch_size
+                                 // self.data_shard[1], side)
         if two_stage:
             stream = prefetch(stream)
         n_images = steps = 0
@@ -257,7 +268,8 @@ class Trainer:
         Any exception writes a best-effort emergency checkpoint under the
         failed epoch's index (unless that epoch was saved) before it is
         re-raised, so a crashed run resumes with `maybe_resume()`.  Under
-        FSDP2 there is none: gathering the shards needs every rank.
+        FSDP2 or tensor parallelism there is none: gathering the shards
+        needs every rank.
 
         ``profile_dir``: a `torch.profiler` trace of the first epoch's
         train phase (`utils.metrics.profiler_trace`), one file per rank.
@@ -289,7 +301,7 @@ class Trainer:
             parallel = self.state.parallel
             try:
                 if (self.ckpt.latest_epoch() != epoch
-                        and (parallel is None or not parallel.fsdp)):
+                        and (parallel is None or not parallel.sharded)):
                     self.ckpt.save(epoch, self.state,
                                    metadata={"history": self.history,
                                              "emergency": True},

@@ -77,6 +77,10 @@ CASES = [
      "/tmp/prof", "--eval-map-every", "1"],
     ["eval", "--data-parallel", "2", "--split", "train"],
     ["detect", "a.jpg", "--draw", "--backbone", "resnet34"],
+    ["train", "--tp", "2", "--backbone", "resnet34"],
+    ["train", "--sp", "4"],
+    ["eval", "--tp", "2", "--data-parallel", "2"],
+    ["eval", "--sp", "2", "--int8"],
 ]
 
 
@@ -101,9 +105,12 @@ def test_device_defaults_to_cuda_and_unported_flags_are_refused():
     assert _parse(cli, ["doctor"]).device == "cuda"
     assert _parse(cli, ["train", "--fsdp", "2"]).fsdp == 2
     assert _parse(cli, ["detect", "x.jpg", "--draw"]).draw
-    for argv in (["train", "--tp", "2"], ["train", "--sp", "2"],
-                 ["train", "--pp", "2"], ["train", "--pp-dp", "2"],
-                 ["train", "--pp-microbatches", "2"], ["eval", "--tp", "2"],
+    assert _parse(cli, ["train", "--tp", "2"]).tp == 2
+    assert _parse(cli, ["train", "--sp", "2"]).sp == 2
+    assert _parse(cli, ["eval", "--tp", "2"]).tp == 2
+    for argv in (["train", "--pp", "2"], ["train", "--pp-dp", "2"],
+                 ["train", "--pp-microbatches", "2"],
+                 ["detect", "x.jpg", "--tp", "2"],
                  ["export", "--out-dir", "x", "--scoped-vmem-kib", "4"],
                  ["doctor", "--compilation-cache", "x"]):
         with pytest.raises(SystemExit):

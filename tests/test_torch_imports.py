@@ -50,6 +50,9 @@ MODULES = (
     "objectdetection_ssd_torch.parallel.distributed",
     "objectdetection_ssd_torch.parallel.mesh",
     "objectdetection_ssd_torch.parallel.data_parallel",
+    "objectdetection_ssd_torch.parallel.collectives",
+    "objectdetection_ssd_torch.parallel.tensor_parallel",
+    "objectdetection_ssd_torch.parallel.spatial",
     "objectdetection_ssd_torch.cli",
 )
 # What a spawn worker of the Loader imports, and the CLI's module (the
@@ -131,23 +134,30 @@ def test_no_silent_cpu_fallback_without_cuda(monkeypatch):
 
 def test_unported_options_raise():
     """What is still unported is refused, not silently ignored: the
-    tensor-, spatial- and pipeline-parallel strategies have no flag and no
-    module in the port.  The doctor, --fsdp, --draw and `parallel/` are
-    ported."""
+    pipeline-parallel strategy has no flag and no module in the port.
+    The doctor, --fsdp, --tp, --sp, --draw and `parallel/` are ported; one
+    process refuses --tp and --sp, whose axis must divide the processes."""
     import importlib
     import dataclasses
     from objectdetection_ssd_torch import cli, config
 
-    for argv in (["train", "--tp", "2"], ["train", "--sp", "2"],
-                 ["train", "--pp", "2"], ["eval", "--tp", "2"]):
+    for argv in (["train", "--pp", "2"], ["train", "--pp-dp", "2"]):
         with pytest.raises(SystemExit):
             cli.main(argv)
+    for argv in (["train", "--tp", "2", "--device", "cpu"],
+                 ["train", "--sp", "2", "--device", "cpu"]):
+        with pytest.raises(SystemExit, match="does not divide the 1"):
+            cli.main(argv)
+    with pytest.raises(SystemExit, match="does not match the world size"):
+        cli.main(["eval", "--tp", "2", "--device", "cpu"])
     fields = {f.name for f in dataclasses.fields(config.TrainConfig)}
     assert {"mesh_shape", "mesh_axis_names", "tensorboard_dir"} <= fields
     assert not {"pp_stages", "pp_microbatches", "pp_dp"} & fields
     for module in ("objectdetection_ssd_torch.utils.doctor",
                    "objectdetection_ssd_torch.parallel",
-                   "objectdetection_ssd_torch.parallel.mesh"):
+                   "objectdetection_ssd_torch.parallel.mesh",
+                   "objectdetection_ssd_torch.parallel.tensor_parallel",
+                   "objectdetection_ssd_torch.parallel.spatial"):
         importlib.import_module(module)
     with pytest.raises(ModuleNotFoundError):
         importlib.import_module("objectdetection_ssd_torch.parallel.pipeline")

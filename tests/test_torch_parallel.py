@@ -24,14 +24,12 @@ files: the spawned ranks import the module of the function they run.
 
 import dataclasses
 import socket
-import time
 
 import jax
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from objectdetection_ssd_tpu.data import synthetic as jsynthetic
 from objectdetection_ssd_tpu.data import voc as jvoc
@@ -45,38 +43,9 @@ from objectdetection_ssd_torch.parallel import mesh as mesh_lib
 from objectdetection_ssd_torch.train.trainer import Trainer
 from tests.test_torch_trainer import (JTinyDet, TTinyDet, _assert_params_match,
                                       _configs, _tiny_priors, _twin)
-
-RANK_TIMEOUT_S = 240
-
-
-# ---------------------------------------------------------------- launcher
-
-
-def _rank_main(rank, fn, world, init_file, threads, args):
-    torch.set_num_threads(threads)
-    dist.init_process_group("gloo", init_method=f"file://{init_file}",
-                            rank=rank, world_size=world)
-    try:
-        fn(rank, world, *args)
-    finally:
-        dist.destroy_process_group()
-
-
-def run_ranks(fn, world, tmp_path, *args, threads=1):
-    """``fn(rank, world, *args)`` in ``world`` spawned processes joined in
-    a gloo process group; re-raises a rank's failure here."""
-    # A fresh rendezvous file per group: a used one holds stale addresses.
-    init_file = str(tmp_path / f"pg{world}-{time.monotonic_ns()}")
-    ctx = mp.start_processes(
-        _rank_main, args=(fn, world, init_file, threads, args),
-        nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + RANK_TIMEOUT_S
-    while not ctx.join(timeout=5):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            raise TimeoutError(f"{world} ranks still running after "
-                               f"{RANK_TIMEOUT_S} s")
+# The launcher, which the other `test_torch_parallel_*` files import from
+# here too.
+from tests.tp_sp_ranks import run_ranks
 
 
 # ------------------------------------------------------------- fixtures
@@ -274,7 +243,7 @@ def test_initialize_noop_half_configured_and_torchrun(monkeypatch):
         assert mesh_lib.batch_axes(mesh) == ()
         assert mesh_lib.local_batch_size(6, mesh) == 6
         with pytest.raises(ValueError, match="not ported"):
-            mesh_lib.create_mesh(None, ("data", "model"), "cpu")
+            mesh_lib.create_mesh(None, ("data", "pipeline"), "cpu")
         with pytest.raises(ValueError, match="holds 2 devices"):
             mesh_lib.create_mesh((2,), ("data",), "cpu")
     finally:
