@@ -59,12 +59,20 @@ under `profiler_trace`; `cli doctor --json`.  Then tensor and spatial
 parallelism (`parallel/tensor_parallel.py`, `parallel/spatial.py`): two
 gloo ranks sharing the one card on a (1, 2) data x model and a (1, 2)
 data x spatial mesh, the f32 routed SSD300 step against the
-single-process card step (K2 counted), the ResNet-34 train-mode step
-under SP, bf16 and int8 `Detector(mesh=)` serving (K1 per batch, K3 23
-per forward per rank, every K3 call bit-equal to its slice of the
-single-process call), one `Trainer.fit` epoch and one `evaluate_records`
-under SP on the trainer fixture (the checkpoint reloaded at world size
-1), and the bytes SSD300's gathers and halos move per step.
+single-process card step (K2 counted), QAT steps under data, tensor and
+spatial parallelism against the single-process card QAT step, the
+ResNet-34 train-mode step under SP, bf16 and int8 `Detector(mesh=)`
+serving (K1 per batch, K3 23 per forward per rank, every K3 call
+bit-equal to its slice of the single-process call), one `Trainer.fit`
+epoch and one `evaluate_records` under SP on the trainer fixture (the
+checkpoint reloaded at world size 1), and the bytes SSD300's gathers and
+halos move per step.  Then pipeline parallelism (`parallel/pipeline.py`)
+with every stage on the one card: the 2-stage step against the
+monolithic one (M = 1), against gradient accumulation (M = 2), the 3-
+and 4-stage forwards, dp = 2 against dp = 1, a routed step (K2 counted,
+4 per microbatch), the bf16 batch-32 step's time and peak memory beside
+the monolithic step's, a `Trainer.fit` epoch whose checkpoint a
+monolithic Trainer resumes, and `cli train --pp 2` refused on one card.
 Then one JSON line with each kernel's
 numbers, the card's name and power limit as nvidia-smi gives them, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -3278,10 +3286,28 @@ def _tp_sp_rank(rank, init_file, tmp):
         priors = torch.tensor(ssd300_priors(), device=dev)
         batch = {k: v.to(dev) for k, v in inp["batch"].items()}
         out = {}
+
+        def qat_step(mesh, rows):
+            """One QAT step on ``mesh``: (metrics, this rank's part of
+            each parameter after it)."""
+            state = create_train_state(ModelConfig(), OptimConfig(),
+                                       device=dev, state_dict=inp["train_sd"],
+                                       mesh=mesh)
+            state, metrics = train_step(state, rows, priors,
+                                        quant_ste=inp["qat_tree"])
+            return ({k: float(v) for k, v in metrics.items()},
+                    {n: local_part(p.detach()) for n, p in
+                     state.model.named_parameters()})
+
+        # QAT under data parallelism (DDP over gloo): this rank's rows.
+        b = TRAIN_BATCH // TP_SP_WAYS
+        out["data"] = {"qat": qat_step(
+            mesh_lib.create_mesh((TP_SP_WAYS,), ("data",), "cuda"),
+            {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()})}
         for axis in ("model", "spatial"):
             mesh = mesh_lib.create_mesh((1, TP_SP_WAYS), ("data", axis),
                                         "cuda")
-            r = {}
+            r = {"qat": qat_step(mesh, batch)}
             t0 = time.perf_counter()
             state = create_train_state(
                 ModelConfig(dw_pallas_convs=ROUTED), OptimConfig(),
@@ -3412,8 +3438,12 @@ def _tp_sp_rank(rank, init_file, tmp):
         dist.destroy_process_group()
 
 
-def phase_tp_sp_leg() -> dict:
-    """Two processes on the one card over gloo: tensor parallelism
+def phase_tp_sp_leg(qat_floor: dict) -> dict:
+    """Two processes on the one card over gloo: QAT steps under data
+    parallelism (DDP), tensor parallelism and spatial partitioning against
+    the single-process card QAT step, at phase "qat"'s gates (the train
+    gates or `QAT_FLOOR_FACTOR` times ``qat_floor``, that phase's floor);
+    tensor parallelism
     (``data x model`` = 1 x 2) and spatial partitioning (``data x
     spatial`` = 1 x 2) of the f32 routed SSD300 step (K2 counted), bf16
     and int8 serving through `Detector(mesh=)` (K1 and K3 counted, every
@@ -3463,6 +3493,24 @@ def phase_tp_sp_leg() -> dict:
                 images[:TP_SP_INT8_BATCH].to(dev))
         single_f32 = Detector(Config(), serve_sd, device=dev).detect_batch(
             images.to(dev))
+        # QAT: scales calibrated on the step's batch, one single-process
+        # step on the card.
+        model = build_model(ModelConfig(), device=dev, train=True)
+        model.load_state_dict(inp["train_sd"])
+        inp["qat_tree"] = quant_lib.chain_scales(quant_lib.act_scales(
+            quant_lib.calibrate(model, [inp["batch"]["images"].to(dev)])),
+            "vgg16")
+        del model
+        state = create_train_state(ModelConfig(), OptimConfig(), device=dev,
+                                   state_dict=inp["train_sd"])
+        state, metrics = train_step(
+            state, {k: v.to(dev) for k, v in inp["batch"].items()},
+            torch.tensor(ssd300_priors(), device=dev),
+            quant_ste=inp["qat_tree"])
+        single_qat = (float(metrics["loss"]),
+                      {n: p.detach().cpu() for n, p in
+                       state.model.named_parameters()})
+        del state
         single_bf16 = [t.float().cpu() for t in Detector(Config(
             model=ModelConfig(compute_dtype="bfloat16")), serve_sd,
             device=dev).forward(images.to(dev))]
@@ -3506,7 +3554,28 @@ def phase_tp_sp_leg() -> dict:
                  for r in range(TP_SP_WAYS)]
         saved, _, _ = CheckpointManager(f"{tmp}/ckpt").load()
 
-    out = {"seconds": leg_s, "k1": 0, "k2": 0, "k3": 0}
+    out = {"seconds": leg_s, "k1": 0, "k2": 0, "k3": 0, "qat": {}}
+    for axis in ("data", "model", "spatial"):
+        row = {}
+        for rank, res in enumerate(ranks):
+            metrics, _ = res[axis]["qat"]
+            params = join_parts([x[axis]["qat"][1] for x in ranks], rank)
+            rows = change_rows(params, single_qat[1], inp["train_sd"])
+            got = {"loss_rel": abs(metrics["loss"] - single_qat[0])
+                   / abs(single_qat[0]),
+                   "delta_rel": rows[0][0], "delta_worst": rows[0][2],
+                   "delta_norm_rel": max(r[1] for r in rows)}
+            for key, gate in (("loss_rel", TRAIN_LOSS_RTOL),
+                              ("delta_rel", TRAIN_DELTA_TOL),
+                              ("delta_norm_rel", TRAIN_DELTA_NORM_TOL)):
+                limit = max(gate, QAT_FLOOR_FACTOR * qat_floor[key])
+                if not got[key] <= limit:
+                    fail(f"QAT under {axis} rank {rank} vs the "
+                         f"single-process card step: {key} {got[key]:.3e} "
+                         f"> {limit:.3e} ({got})")
+                row[key] = max(row.get(key, 0.0), got[key])
+            row.setdefault("delta_worst", got["delta_worst"])
+        out["qat"][axis] = row
     smetrics, sgrads = single_step
     zeros = {n: torch.zeros_like(g) for n, g in sgrads.items()}
     for axis in ("model", "spatial"):
@@ -3845,6 +3914,325 @@ def phase_doctor() -> dict:
             or payload["device_count"] != torch.cuda.device_count()):
         fail(f"cli doctor rc {rc}: {payload}")
     return payload
+
+
+# ------------------------------------------------------------ pipeline (PP)
+
+# The PP step on one card (every stage on cuda:0) against the monolithic
+# step from the same weights and batch, cuDNN deterministic: the same
+# convs on the same rows, so the gradients are bit-equal at M = 1 (as on
+# the CPU, tests/test_torch_pp.py); dp = 2 splits each microbatch's rows,
+# so its convs run at other batch sizes (other cuDNN algorithms) and its
+# filter gradients are sums of two halves: held to this of the largest
+# (measured by this script on an H100 80GB HBM3 at 700 W: 1.45e-5).
+PP_GRAD_TOL = 1e-4
+# The 3- and 4-stage forwards against the monolith (tests/test_torch_pp.py).
+PP_FORWARD_TOL = 1e-5
+# bf16 timing of the PP step beside the monolithic one: windows in turns.
+PP_TIMING_WINDOWS = 3
+PP_TIMING_STEPS = 5
+PP_TIMING_MICROBATCHES = (1, 4)
+# The PP Trainer epoch's fixture (train, val images) and batch.
+PP_FIXTURE = (64, 16)
+PP_TRAINER_BATCH = 16
+
+
+def _pp_step(device, model_config, init_sd, batch, priors, stages: int = 2,
+             microbatches: int = 1, dp: int = 1, optim=None):
+    """One `make_pp_steps` train step from ``init_sd`` with every stage on
+    ``device``: (state, metrics as floats, the runner)."""
+    from objectdetection_ssd_torch.config import OptimConfig
+    from objectdetection_ssd_torch.parallel.pipeline import build_pipeline_for
+    from objectdetection_ssd_torch.train.loop import make_pp_steps
+    from objectdetection_ssd_torch.train.state import create_train_state
+    state = create_train_state(model_config, optim or OptimConfig(),
+                               device=device, state_dict=init_sd)
+    runner = build_pipeline_for(state.model, stages,
+                                [device] * (stages * dp), microbatches, dp)
+    step, _ = make_pp_steps(runner, priors)
+    state, metrics = step(state, batch)
+    return state, {k: float(v) for k, v in metrics.items()}, runner
+
+
+def _grads(state) -> dict:
+    return {n: p.grad.detach().float().cpu()
+            for n, p in state.model.named_parameters()}
+
+
+def _grad_rel(got: dict, want: dict) -> tuple:
+    """(the worst |got - want| over the largest |want| per tensor, its
+    name, whether every tensor is bit-equal)."""
+    rows = [(float((got[n] - w).abs().max() / w.abs().max()), n)
+            for n, w in want.items() if w.abs().max() > 0]
+    worst = max(rows)
+    return worst[0], worst[1], all(torch.equal(got[n], w)
+                                   for n, w in want.items())
+
+
+def pp_timing(device, init_sd, batch, priors) -> dict:
+    """bf16 batch-32 steps, the monolithic `train_step` and the 2-stage PP
+    step at each of `PP_TIMING_MICROBATCHES`, every stage on the one card:
+    ms per step (median of windows in turns) and the peak memory of one
+    step above the state's."""
+    from objectdetection_ssd_torch.config import ModelConfig, OptimConfig
+    from objectdetection_ssd_torch.parallel.pipeline import build_pipeline_for
+    from objectdetection_ssd_torch.train.loop import (make_pp_steps,
+                                                      train_step)
+    from objectdetection_ssd_torch.train.state import create_train_state
+    cfg = ModelConfig(compute_dtype="bfloat16")
+    steps = {}
+    for key in ["mono"] + [f"pp_m{m}" for m in PP_TIMING_MICROBATCHES]:
+        state = create_train_state(cfg, OptimConfig(), device=device,
+                                   state_dict=init_sd)
+        if key == "mono":
+            fn = (lambda st: lambda b: train_step(st, b, priors))(state)
+        else:
+            runner = build_pipeline_for(state.model, 2, [device] * 2,
+                                        int(key[4:]))
+            pp_train, _ = make_pp_steps(runner, priors)
+            fn = (lambda st, f: lambda b: f(st, b))(state, pp_train)
+        fn(batch)                                           # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn(batch)
+        torch.cuda.synchronize()
+        steps[key] = {"fn": fn, "windows_ms": [],
+                      "peak_mb": (torch.cuda.max_memory_allocated() - base)
+                      / 2**20}
+    for _ in range(PP_TIMING_WINDOWS):
+        for key, row in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(PP_TIMING_STEPS):
+                _, metrics = row["fn"](batch)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+            row["windows_ms"].append((time.perf_counter() - t0)
+                                     / PP_TIMING_STEPS * 1e3)
+    out = {}
+    for key, row in steps.items():
+        ms = statistics.median(row["windows_ms"])
+        out[key] = {"step_ms": ms, "windows_ms": row["windows_ms"],
+                    "images_per_s": batch["images"].shape[0] / ms * 1e3,
+                    "peak_mb": row["peak_mb"]}
+    return out
+
+
+def pp_trainer(device, fixture=PP_FIXTURE,
+               batch_size: int = PP_TRAINER_BATCH, workers: int = 2) -> dict:
+    """One `Trainer.fit` epoch of SSD300 under PP (2 stages, M = 2, every
+    stage on ``device``) on a `write_fixture` VOCdevkit; a monolithic
+    Trainer resumes its checkpoint to bit-equal parameters.  Then `cli
+    train --pp 2` on the same fixture: with fewer cards than stages it
+    must exit with the device message, not fall back."""
+    import io
+    import tempfile
+
+    from objectdetection_ssd_torch import cli
+    from objectdetection_ssd_torch.config import (Config, DataConfig,
+                                                  TrainConfig)
+    from objectdetection_ssd_torch.data.pipeline import Loader
+    from objectdetection_ssd_torch.train.trainer import Trainer
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pp_") as tmp:
+        root, prefix = f"{tmp}/VOCdevkit", f"{tmp}/cache"
+        train_recs, val_recs = write_fixture(root, prefix, *fixture)
+        loaders = []
+
+        def trainer(pp: int):
+            cfg = Config(
+                data=DataConfig(voc_root=root, batch_size=batch_size,
+                                num_workers=workers, image_cache=prefix),
+                train=TrainConfig(checkpoint_dir=f"{tmp}/ckpt",
+                                  log_every_steps=0, seed=SEED,
+                                  pp_stages=pp, pp_microbatches=2))
+            lds = (Loader(train_recs, cfg.data, 300, train=True, seed=SEED,
+                          cache_path=prefix),
+                   Loader(val_recs, cfg.data, 300, train=False,
+                          drop_last=False, cache_path=prefix + ".val"))
+            loaders.extend(lds)
+            return Trainer(cfg, *lds, device=device,
+                           pp_devices=[device] * 2 if pp else None)
+
+        try:
+            t0 = time.perf_counter()
+            pp = trainer(2)
+            pp.fit(1)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            out["fit_s"] = time.perf_counter() - t0
+            out["history"] = pp.history
+            out["stats"] = pp.phase_stats
+            history = pp.history["train"] + pp.history["test"]
+            if not all(math.isfinite(x) for x in history):
+                fail(f"PP trainer: history {pp.history}")
+            params = {n: p.detach().clone() for n, p in
+                      pp.state.model.named_parameters()}
+            mono = trainer(0)
+            if not (mono.maybe_resume() and mono.start_epoch == 1
+                    and mono.state.step == pp.state.step):
+                fail("PP trainer: the monolithic Trainer did not resume "
+                     "the PP checkpoint")
+            if any(not torch.equal(p.detach(), params[n]) for n, p in
+                   mono.state.model.named_parameters()):
+                fail("PP trainer: the checkpoint does not reload to the PP "
+                     "run's parameters")
+        finally:
+            for loader in loaders:
+                loader.close()
+        n_cards = torch.cuda.device_count() if device.type == "cuda" else 0
+        if device.type == "cuda" and n_cards < 2:
+            want = (f"--pp 2 x --pp-dp 1 needs 2 devices; {n_cards} "
+                    "available")
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli.main(["train", "--pp", "2", "--voc-root", root,
+                              "--checkpoint-dir", f"{tmp}/cli", "--epochs",
+                              "1", "--num-workers", "0"])
+                fail("cli train --pp 2 ran on one card")
+            except SystemExit as e:
+                if str(e) != want:
+                    fail(f"cli train --pp 2 exited with {e!r}")
+            out["cli_exit"] = want
+        else:
+            out["cli_exit"] = None
+    return out
+
+
+def phase_pp(device, batch: int = TRAIN_BATCH,
+             timing_batch: int = TIMING_TRAIN_BATCH, **trainer_kw) -> dict:
+    """Pipeline parallelism (`parallel/pipeline.py`) with every stage on
+    the one card, cuDNN deterministic: the f32 2-stage M = 1 step against
+    the monolithic step, M = 2 against two grad-accum micro-steps, the 3-
+    and 4-stage forwards against the monolith, dp = 2 against dp = 1, one
+    routed step (K2 counted: 4 per microbatch; its dW against the
+    unrouted step's), the bf16 batch-32 PP step's time and peak memory
+    beside the monolithic step's at M = 1 and 4, one `Trainer.fit` epoch
+    under PP whose checkpoint a monolithic Trainer resumes, and `cli train
+    --pp 2` refused on one card."""
+    from objectdetection_ssd_torch.config import ModelConfig, OptimConfig
+    from objectdetection_ssd_torch.ops import dw_cuda
+    from objectdetection_ssd_torch.ops.priors import ssd300_priors
+    from objectdetection_ssd_torch.parallel.pipeline import build_pipeline_for
+    from objectdetection_ssd_torch.train.loop import train_step
+    from objectdetection_ssd_torch.train.state import create_train_state
+
+    cuda = device.type == "cuda"
+    gen = torch.Generator().manual_seed(SEED + 30)
+    b = {k: v.to(device) for k, v in synthetic_batch(batch, gen).items()}
+    priors = torch.tensor(ssd300_priors(), device=device)
+    init_sd = train_init_state_dict()
+    f32 = ModelConfig()
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # M = 1 against the monolithic step.
+        state = create_train_state(f32, OptimConfig(), device=device,
+                                   state_dict=init_sd)
+        state, metrics = train_step(state, b, priors)
+        mono_loss, mono_grads = float(metrics["loss"]), _grads(state)
+        del state
+        state, m, _ = _pp_step(device, f32, init_sd, b, priors)
+        rel, name, equal = _grad_rel(_grads(state), mono_grads)
+        out["m1"] = {"grad_rel": rel, "worst": name, "bit_equal": equal,
+                     "loss_equal": m["loss"] == mono_loss}
+        if not (rel <= 1e-6 and abs(m["loss"] - mono_loss)
+                <= 1e-6 * abs(mono_loss)):
+            fail(f"PP M=1 step vs monolithic: gradients {rel:.3e} of the "
+                 f"largest ({name}), loss {m['loss']} vs {mono_loss}")
+        del state
+
+        # M = 2 against two grad-accum micro-steps of the halves.
+        state, m, _ = _pp_step(device, f32, init_sd, b, priors,
+                               microbatches=2)
+        acc = create_train_state(f32, OptimConfig(grad_accum_steps=2),
+                                 device=device, state_dict=init_sd)
+        half = batch // 2
+        losses = []
+        for rows in (slice(0, half), slice(half, batch)):
+            acc, am = train_step(acc, {k: v[rows] for k, v in b.items()},
+                                 priors)
+            losses.append(float(am["loss"]))
+        loss_rel = abs(m["loss"] - sum(losses) / 2) / abs(sum(losses) / 2)
+        rows = change_rows(dict(state.model.named_parameters()),
+                           {n: p.detach().cpu() for n, p in
+                            acc.model.named_parameters()}, init_sd)
+        out["m2"] = {"loss_rel": loss_rel, "delta_rel": rows[0][0],
+                     "delta_worst": rows[0][2],
+                     "delta_norm_rel": max(r[1] for r in rows)}
+        if not (loss_rel <= TRAIN_LOSS_RTOL
+                and out["m2"]["delta_rel"] <= TRAIN_DELTA_TOL
+                and out["m2"]["delta_norm_rel"] <= TRAIN_DELTA_NORM_TOL):
+            fail(f"PP M=2 step vs grad-accum micro-steps: {out['m2']}")
+        del state, acc
+
+        # The 3- and 4-stage forwards against the monolith.
+        model = create_train_state(f32, OptimConfig(), device=device,
+                                   state_dict=init_sd).model
+        with torch.no_grad():
+            want = [t.cpu() for t in model(b["images"])]
+        out["forward_rel"] = {}
+        for n in (3, 4):
+            runner = build_pipeline_for(model, n, [device] * n, 1)
+            got = runner.forward(b["images"])
+            out["forward_rel"][n] = rel_diff(got, want)
+            if not out["forward_rel"][n] <= PP_FORWARD_TOL:
+                fail(f"PP {n}-stage forward vs monolith: "
+                     f"{out['forward_rel'][n]:.3e} of the largest")
+        del model, runner
+
+        # dp = 2 against dp = 1.
+        state, m, _ = _pp_step(device, f32, init_sd, b, priors, dp=2)
+        rel, name, _ = _grad_rel(_grads(state), mono_grads)
+        loss_rel = abs(m["loss"] - mono_loss) / abs(mono_loss)
+        out["dp2"] = {"grad_rel": rel, "worst": name, "loss_rel": loss_rel}
+        if not (rel <= PP_GRAD_TOL and loss_rel <= TRAIN_LOSS_RTOL):
+            fail(f"PP dp=2 vs dp=1: gradients {rel:.3e} of the largest "
+                 f"({name}), loss {loss_rel:.3e} relative")
+        del state
+
+        # The routed step, M = 2: K2's launches and its dW.
+        unrouted, um, _ = _pp_step(device, f32, init_sd, b, priors,
+                                   microbatches=2)
+        want = _grads(unrouted)
+        del unrouted
+        # The main path: counts set to 0 just before, read just after.
+        dw_cuda.launches = 0
+        state, rm, runner = _pp_step(device, ModelConfig(
+            dw_pallas_convs=ROUTED), init_sd, b, priors, microbatches=2)
+        if cuda:
+            torch.cuda.synchronize()
+        out["k2"] = dw_cuda.launches
+        if cuda and out["k2"] != 4 * 2:
+            fail(f"K2 launched {out['k2']} times in a routed PP step of 2 "
+                 f"microbatches")
+        if not all(getattr(runner.stages[0].trunk, n).dw_route
+                   for n in ROUTED):
+            fail("the PP stages lost the K2 route")
+        got = _grads(state)
+        out["k2_wgrad_rel"] = max(
+            float((got[f"trunk.{n}.weight"] - want[f"trunk.{n}.weight"])
+                  .abs().max() / want[f"trunk.{n}.weight"].abs().max())
+            for n in ROUTED)
+        if not out["k2_wgrad_rel"] <= WGRAD_TOL:
+            fail(f"PP routed dW vs the unrouted step's: "
+                 f"{out['k2_wgrad_rel']:.3e}")
+        del state, runner
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if cuda:
+        torch.cuda.empty_cache()
+        tb = {k: v.to(device) for k, v in
+              synthetic_batch(timing_batch, gen).items()}
+        out["timing"] = pp_timing(device, init_sd, tb, priors)
+        del tb
+        torch.cuda.empty_cache()
+    out["trainer"] = pp_trainer(device, **trainer_kw)
+    return out
 
 
 def main(argv=None) -> int:
@@ -4371,8 +4759,19 @@ def main(argv=None) -> int:
 
     # Tensor and spatial parallelism: two gloo ranks on the one card.
     t_phase = time.perf_counter()
-    tps = phase_tp_sp_leg()
+    tps = phase_tp_sp_leg(qa["floor"])
     shared = "two gloo ranks sharing one card, not a multi-card figure"
+    print(f"tp/sp: QAT, one f32 train_step (quant_ste, TF32 off, cuDNN "
+          f"deterministic) batch {TRAIN_BATCH} on two gloo ranks ({shared}, "
+          f"{smi}) against the single-process card QAT step: " + "; ".join(
+              f"{name}: losses {r['loss_rel']:.3e} relative, parameter "
+              f"changes {r['delta_norm_rel']:.3e} in norm and "
+              f"{r['delta_rel']:.3e} of their largest ({r['delta_worst']})"
+              for name, r in (("data (DDP)", tps["qat"]["data"]),
+                              ("TP = 2", tps["qat"]["model"]),
+                              ("SP = 2", tps["qat"]["spatial"])))
+          + f" (limit: the train gates or {QAT_FLOOR_FACTOR} x phase qat's "
+          f"floor)")
     for axis, name in (("model", "TP = 2 (data x model = 1 x 2)"),
                        ("spatial", "SP = 2 (data x spatial = 1 x 2)")):
         r = tps[axis]
@@ -4427,6 +4826,45 @@ def main(argv=None) -> int:
     k1_launches += tps["k1"]
     k3_launches += tps["k3"]
 
+    # Pipeline parallelism, every stage on the one card.
+    t_phase = time.perf_counter()
+    pp = phase_pp(device)
+    m1, m2, dp2 = pp["m1"], pp["m2"], pp["dp2"]
+    print(f"pp: f32 SSD300 batch {TRAIN_BATCH}, every stage on cuda:0, "
+          f"cuDNN deterministic ({smi}): 2-stage M=1 vs the monolithic step "
+          f"gradients {'bit-equal' if m1['bit_equal'] else 'not bit-equal'}"
+          f" ({m1['grad_rel']:.3e} of the largest), loss "
+          f"{'equal' if m1['loss_equal'] else 'not equal'}; M=2 vs two "
+          f"grad-accum micro-steps: loss {m2['loss_rel']:.3e} relative, "
+          f"parameter changes {m2['delta_rel']:.3e} of their largest "
+          f"({m2['delta_worst']}), {m2['delta_norm_rel']:.3e} in norm; "
+          f"3- and 4-stage forwards vs the monolith " + ", ".join(
+              f"{n}: {v:.3e}" for n, v in pp["forward_rel"].items())
+          + f" of the largest; dp=2 vs dp=1 gradients {dp2['grad_rel']:.3e} "
+          f"of the largest ({dp2['worst']}; gate {PP_GRAD_TOL:.0e}), loss "
+          f"{dp2['loss_rel']:.3e}; routed step M=2: K2 launches {pp['k2']} "
+          f"(4 per microbatch), dW vs the unrouted step's "
+          f"{pp['k2_wgrad_rel']:.3e} of max|dW|")
+    t = pp["timing"]
+    print(f"pp timing: bf16 SSD300 train step batch {TIMING_TRAIN_BATCH}, "
+          f"every stage on the one card ({smi}), median of "
+          f"{PP_TIMING_WINDOWS} windows of {PP_TIMING_STEPS} steps in turns: "
+          + "; ".join(f"{key} {r['step_ms']:.3f} ms/step "
+                      f"({r['images_per_s']:.1f} images/s, windows "
+                      f"{[round(w, 3) for w in r['windows_ms']]}), peak "
+                      f"memory above the state {r['peak_mb']:.1f} MiB"
+                      for key, r in t.items()))
+    tr_pp = pp["trainer"]
+    st = tr_pp["stats"]["train"]
+    print(f"pp: Trainer.fit 1 f32 epoch, --pp 2 --pp-microbatches 2, batch "
+          f"{PP_TRAINER_BATCH}, fixture {PP_FIXTURE} ({smi}): {st['images']} "
+          f"images in {st['steps']} steps, {st['seconds']:.2f} s, losses "
+          f"{tr_pp['history']}; a monolithic Trainer resumed its checkpoint "
+          f"to bit-equal parameters; cli train --pp 2 on "
+          f"{torch.cuda.device_count()} card(s): "
+          f"{tr_pp['cli_exit'] or 'not checked (enough cards)'}")
+    print(f"pp phase took {time.perf_counter() - t_phase:.1f} s")
+
     k2 = tt["k2"]
     k2_ops = sum(r["ops_ms"] for r in k2)
     k2_bytes = sum(r["bytes_ms"] for r in k2)
@@ -4471,11 +4909,12 @@ def main(argv=None) -> int:
         "source": "objectdetection_ssd_torch/csrc/dw_conv3x3.cu",
         "replaces": "objectdetection_ssd_tpu/ops/dw_pallas.py:151",
         # The routed train steps, the remat phase's two steps, the
-        # wrapped steps (DDP and FSDP2), rank 0 of the gloo leg and both
-        # ranks of the TP and SP steps.
+        # wrapped steps (DDP and FSDP2), rank 0 of the gloo leg, both
+        # ranks of the TP and SP steps and the routed PP step.
         "launches": (tr["launches"] + rm["launches"]
                      + ps["ddp"]["launches"] + ps["fsdp"]["launches"]
-                     + pt["launches"] + gl["launches"] + tps["k2"]),
+                     + pt["launches"] + gl["launches"] + tps["k2"]
+                     + pp["k2"]),
         "max_abs_err": dw_worst,
         # The four launches of one bf16 batch-32 train step, summed.
         "ms": sum(r["ms"] for r in k2),

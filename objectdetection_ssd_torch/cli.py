@@ -14,6 +14,8 @@ Usage:
       --voc-root VOCdevkit --tp 2          # or --sp 2
   torchrun --nproc-per-node 4 -m objectdetection_ssd_torch.cli eval \
       --voc-root VOCdevkit --sp 2 --data-parallel 2
+  python -m objectdetection_ssd_torch.cli train --voc-root VOCdevkit \
+      --pp 2 --pp-microbatches 4
 
 Both model families (``--backbone vgg16 | resnet34``), remat, Soft-NMS
 and flip TTA, the ``--init-*`` weight loaders, int8 serving (``eval`` /
@@ -26,8 +28,9 @@ evaluation are ported.  Under ``torchrun`` (one process per card)
 ``--tp N`` or spatial partitioning with ``--sp N`` (the N processes of
 each group split one data shard's channels or rows), and ``eval``
 evaluates data-parallel, or with ``--tp`` / ``--sp`` on a (data, model) or
-(data, spatial) mesh.  The pipeline-parallel flags (``--pp``, ``--pp-dp``,
-``--pp-microbatches``) are not accepted.
+(data, spatial) mesh; ``--qat`` trains under each of them.  Pipeline
+parallelism (``train --pp N``, ``--pp-microbatches``, ``--pp-dp``) runs in
+one process over N cards (`parallel/pipeline.py`).
 
 This module imports no torch at import time: the Loader's spawn workers
 import the ``__main__`` module, which is this one under ``python -m``.
@@ -158,6 +161,20 @@ def build_config(args) -> config_lib.Config:
     if pp_kw:
         cfg = cfg.replace(postprocess=dataclasses.replace(
             cfg.postprocess, **pp_kw))
+    if getattr(args, "pp", 0) and args.pp > 1:
+        if getattr(args, "qat", False):
+            raise SystemExit("--qat does not compose with --pp (the staged "
+                             "programs have no fake-quant path)")
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, pp_stages=args.pp,
+            pp_microbatches=max(getattr(args, "pp_microbatches", 1), 1),
+            pp_dp=max(getattr(args, "pp_dp", 1), 1)))
+    elif (max(getattr(args, "pp_dp", 1) or 1, 1) > 1
+          or max(getattr(args, "pp_microbatches", 1) or 1, 1) > 1):
+        # Plain training here would let the user believe the pipeline ran.
+        raise SystemExit("--pp-dp/--pp-microbatches require --pp N (N>1): "
+                         "they configure the pipeline's stage meshes and "
+                         "microbatch schedule")
     q_kw = {}
     if getattr(args, "int8", False):
         q_kw["int8"] = True
@@ -361,15 +378,21 @@ def cmd_train(args) -> int:
     if args.epochs is not None:
         cfg = cfg.replace(train=dataclasses.replace(
             cfg.train, num_epochs=args.epochs))
-    secondary = [(flag, axis, v) for flag, axis, v in (
+    strategies = [(flag, axis, v) for flag, axis, v in (
         ("--fsdp", "fsdp", args.fsdp), ("--tp", "model", args.tp),
-        ("--sp", "spatial", args.sp)) if v and v > 1]
-    if len(secondary) > 1:
-        raise SystemExit(f"{' and '.join(f for f, _, _ in secondary)} are "
+        ("--sp", "spatial", args.sp), ("--pp", None, args.pp))
+        if v and v > 1]
+    if len(strategies) > 1:
+        raise SystemExit(f"{' and '.join(f for f, _, _ in strategies)} are "
                          "mutually exclusive (one strategy beyond data "
                          "parallelism; pick params-gathered ZeRO-3, "
-                         "channel-partitioned tensor parallelism, or "
-                         "H-partitioned spatial parallelism)")
+                         "channel-partitioned tensor parallelism, "
+                         "H-partitioned spatial parallelism, or GPipe "
+                         "pipeline stages)")
+    if cfg.train.pp_stages > 1:
+        _check_pp_devices(cfg, device, n_proc)
+    # The mesh axis beside 'data', if any.
+    secondary = [s for s in strategies if s[1] is not None]
     if secondary:
         flag, axis, ways = secondary[0]
         if n_proc % ways:
@@ -381,10 +404,6 @@ def cmd_train(args) -> int:
         cfg = cfg.replace(train=dataclasses.replace(
             cfg.train, mesh_shape=(n_proc // ways, ways),
             mesh_axis_names=("data", axis)))
-    if cfg.quant.qat and (n_proc > 1 or secondary):
-        raise SystemExit("--qat under a mesh (--fsdp, --tp, --sp, or more "
-                         "than one process) is not ported yet; QAT-train "
-                         "on one card")
     # Every rank of a model or spatial group reads its data shard's rows.
     n_sec = secondary[0][2] if secondary and secondary[0][1] != "fsdp" else 1
     shard = ((distributed.process_index() // n_sec, n_proc // n_sec)
@@ -449,36 +468,73 @@ def cmd_train(args) -> int:
     return 0
 
 
+def _check_pp_devices(cfg: config_lib.Config, device, n_proc: int) -> None:
+    """Exit, before any data is read, where `Trainer` would refuse
+    ``--pp``: under a process group, and on fewer cards than ``pp *
+    pp_dp`` (no fallback to fewer devices or to the CPU)."""
+    from objectdetection_ssd_torch.parallel.pipeline import SINGLE_CONTROLLER
+    if n_proc > 1:
+        raise SystemExit(SINGLE_CONTROLLER)
+    if device.type == "cuda":
+        import torch
+        pp, dp = cfg.train.pp_stages, cfg.train.pp_dp
+        have = torch.cuda.device_count()
+        if have < pp * dp:
+            raise SystemExit(f"--pp {pp} x --pp-dp {dp} needs {pp * dp} "
+                             f"devices; {have} available")
+
+
 def _start_qat(cfg: config_lib.Config, trainer, train_recs):
     """Calibrate on the weights about to be fine-tuned (after init and
     resume), switch the Trainer to fake-quant convs and save the scales
-    before `fit` (no binding yet: the final weights do not exist)."""
+    before `fit` (no binding yet: the final weights do not exist).
+
+    Under a mesh every rank gathers the weights (a collective under FSDP2
+    and tensor parallelism); the primary calibrates on them and broadcasts
+    the scale tree, so every rank holds the same scales."""
     import os
+    import torch.distributed as dist
     from objectdetection_ssd_torch.infer import quant as quant_lib
-    qcfg = cfg.replace(quant=dataclasses.replace(cfg.quant, int8=True))
-    qtree = _build_quant(qcfg, trainer.state.model.state_dict(),
-                         trainer.device, records=train_recs)
+    from objectdetection_ssd_torch.parallel import distributed
+    from objectdetection_ssd_torch.parallel.data_parallel import (
+        full_state_dict)
+    weights = full_state_dict(trainer.state.model.state_dict())
+    qtree = None
+    if distributed.is_primary():
+        qcfg = cfg.replace(quant=dataclasses.replace(cfg.quant, int8=True))
+        qtree = _build_quant(qcfg, weights, trainer.device,
+                             records=train_recs)
+        os.makedirs(cfg.train.checkpoint_dir, exist_ok=True)
+        quant_lib.save_scales(qtree, os.path.join(
+            cfg.train.checkpoint_dir, quant_lib.SCALES_FILENAME))
+    if dist.is_initialized():
+        box = [qtree]
+        dist.broadcast_object_list(box, src=0)
+        qtree = box[0]
     trainer.enable_qat(qtree)
-    os.makedirs(cfg.train.checkpoint_dir, exist_ok=True)
-    quant_lib.save_scales(qtree, os.path.join(cfg.train.checkpoint_dir,
-                                              quant_lib.SCALES_FILENAME))
     return qtree
 
 
 def _save_qat_scales(cfg: config_lib.Config, trainer, state, qtree) -> None:
     """Re-save the scales bound to the finished checkpoint: the raw
     weights' fingerprint and, with an EMA, the averaged weights' (which
-    ``--use-ema`` serves), and the epoch."""
+    ``--use-ema`` serves), and the epoch.  Under a mesh every rank
+    gathers the weights (a collective); the primary writes."""
     import os
     from objectdetection_ssd_torch.infer import quant as quant_lib
-    weights = state.model.state_dict()
+    from objectdetection_ssd_torch.parallel import distributed
+    from objectdetection_ssd_torch.parallel.data_parallel import (
+        full_state_dict)
+    weights = full_state_dict(state.model.state_dict())
     fps = [quant_lib.param_fingerprint(weights)]
     if state.ema is not None:
-        fps.append(quant_lib.param_fingerprint({**weights, **state.ema}))
-    quant_lib.save_scales(
-        qtree, os.path.join(cfg.train.checkpoint_dir,
-                            quant_lib.SCALES_FILENAME),
-        fingerprint=fps, epoch=trainer.ckpt.latest_epoch())
+        fps.append(quant_lib.param_fingerprint(
+            {**weights, **full_state_dict(state.ema)}))
+    if distributed.is_primary():
+        quant_lib.save_scales(
+            qtree, os.path.join(cfg.train.checkpoint_dir,
+                                quant_lib.SCALES_FILENAME),
+            fingerprint=fps, epoch=trainer.ckpt.latest_epoch())
 
 
 def cmd_eval(args) -> int:
@@ -669,6 +725,34 @@ def main(argv: Optional[List[str]] = None) -> int:
                               "params replicate over the axis; use when "
                               "per-example activation memory is the wall; "
                               "mutually exclusive with --fsdp/--tp")
+    p_train.add_argument("--pp", type=int, default=0, metavar="N",
+                         help="pipeline parallelism (GPipe): split the "
+                              "model into N stages on N devices and stream "
+                              "microbatches through them (SSD300 cuts: 2 = "
+                              "trunk|head, 3 = conv1-3|conv4-fc7|head, 4 = "
+                              "conv1-2|conv3-4|conv5-fc7|head); the "
+                              "optimizer (StepLR/warmup/--grad-accum/"
+                              "--ema-decay) and checkpointing apply "
+                              "unchanged, and checkpoints stay monolithic "
+                              "(interchangeable with every other "
+                              "strategy); backward is rematerialized per "
+                              "stage, so --remat is implied; composes "
+                              "with data parallelism via --pp-dp; one "
+                              "process (not under torchrun); mutually "
+                              "exclusive with --fsdp/--tp/--sp and --qat")
+    p_train.add_argument("--pp-microbatches", type=int, default=1,
+                         metavar="M",
+                         help="microbatches streamed per --pp step "
+                              "(gradients MEANed over them — --grad-accum "
+                              "semantics; batch size must divide evenly; "
+                              "1 = the monolithic step)")
+    p_train.add_argument("--pp-dp", type=int, default=1, metavar="D",
+                         help="data-parallel ways WITHIN each --pp stage "
+                              "(needs N x D devices): each microbatch's "
+                              "rows split over the stage's D devices, "
+                              "their gradients summed on its first; "
+                              "numerically plain --pp on the same global "
+                              "batch")
     p_train.add_argument("--device-prefetch", dest="device_prefetch",
                          action="store_true", default=None,
                          help="copy each batch to the card on its own "

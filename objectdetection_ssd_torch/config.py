@@ -6,9 +6,9 @@ keeps its own copy because it must not import the JAX package (whose
 ``__init__`` imports JAX).  Fields that only steer the TPU compiler
 (``scoped_vmem_limit_kib``, ``compilation_cache_dir``) or a JAX loop form
 (``nms_unrolled``, ``approx_recall_target``) are left out: they have no
-counterpart here.  Fields of features not ported yet are left out too:
-the pipeline stages (``pp_*``) and ``donate_state``.  The doctor has no
-config section: its settings are ``cli doctor``'s flags.
+counterpart here.  Nor has ``donate_state``: PyTorch's step updates the
+state in place already.  The doctor has no config section: its settings
+are ``cli doctor``'s flags.
 """
 
 from __future__ import annotations
@@ -232,6 +232,16 @@ class TrainConfig:
     # Exponential moving average of the weights, e <- d*e + (1-d)*p per
     # optimizer update; 0.0 = off (the reference has none).
     ema_decay: float = 0.0
+    # Pipeline parallelism (`parallel/pipeline.py`, `train --pp N`): the
+    # model cut into N stages, one per device; 0 or 1 = off.
+    pp_stages: int = 0
+    # Microbatches streamed per step under --pp; gradients are MEANed over
+    # them (`--grad-accum` semantics; 1 = the monolithic step).
+    pp_microbatches: int = 1
+    # Data-parallel ways WITHIN each pipeline stage (`--pp N --pp-dp D`,
+    # N x D devices): each microbatch's rows split over the stage's D
+    # replicas, their gradients summed onto the stage's lead device.
+    pp_dp: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -118,7 +118,8 @@ class TorchConv(nn.Conv2d):
       ``dtype``, or requantizes to int8 by ``out_scale``;
     * straight-through (QAT): both operands fake-quantized in f32 with the
       scales held constant, an f32 conv, the bias, then ``dtype``;
-      ``out_scale`` is ignored.
+      ``out_scale`` is ignored.  It runs under tensor and spatial
+      parallelism too (`_quant_forward`).
 
     ``part`` (`set_partition`): under tensor parallelism the conv holds
     its output channels of a DTensor weight and gathers its input's
@@ -173,13 +174,24 @@ class TorchConv(nn.Conv2d):
                                                     torch.float32)
         geometry = (self.stride[0], self.padding[0], self.dilation[0])
         if q.straight_through:
-            if self.part is not None:
-                raise NotImplementedError("QAT under tensor or spatial "
-                                          "parallelism is not ported")
-            w = self.weight.float()
+            # Under tensor parallelism: this rank's output channels of the
+            # weight, whose scales are those of the whole weight's channels,
+            # on the gathered input.  Under spatial partitioning: this
+            # rank's input rows, quantized before the halo exchange (a zero
+            # row stays zero), then the conv at padding 0 in H.
+            w = _local(self.weight).float()
             s_w = k3.weight_scale(w)[:, None, None, None]
-            y = F.conv2d(_ste_fake_quant(x.float(), q.act_scale),
-                         _ste_fake_quant(w, s_w), None, *geometry)
+            x_q = _ste_fake_quant(x.float(), q.act_scale)
+            w_q = _ste_fake_quant(w, s_w)
+            if _spatial(self.part):
+                stride, padding, dilation = geometry
+                ext, rows = self.part.extend(x_q, self.kernel_size[0],
+                                             stride, padding, dilation)
+                y = self.part.narrow_rows(
+                    F.conv2d(ext, w_q, None, stride, (0, padding), dilation),
+                    0, rows)
+            else:
+                y = F.conv2d(x_q, w_q, None, *geometry)
             if bias is not None:
                 y = y + bias[:, None, None]
             return y.to(q.dtype)

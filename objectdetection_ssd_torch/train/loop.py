@@ -29,11 +29,15 @@ the rows of this rank's data shard, the same on every rank of its
 itself (`parallel/spatial.py:SpatialParallel.enter`) and gathers its
 heads, and `MeshParallel.backward` sums the gradients over the ranks that
 hold parts of them.
+
+`make_pp_steps` gives the same ``(state, batch) -> (state, metrics)``
+steps over a `parallel/pipeline.py:PipelineRunner` (``train --pp``, JAX
+`loop.py:make_pp_steps`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -144,3 +148,73 @@ def eval_step(state: TrainState, batch: Mapping[str, object],
     state.model.eval()
     with scales_attached(state.model, quant_ste, straight_through=True):
         return _metrics(state, _loss(state, batch, priors, loss_config))
+
+
+def make_pp_steps(runner, priors, loss_config: LossConfig = LossConfig(),
+                  ema_decay: float = 0.0
+                  ) -> Tuple[Callable, Callable]:
+    """Train and eval steps driven by a GPipe ``runner`` — the ``--pp``
+    training surface, with `train_step`'s ``(state, batch) -> (state,
+    metrics)`` contract (``eval_step``'s for the eval step).
+
+    ``state.model`` is the monolith whose modules the runner's stages are
+    (`parallel/pipeline.py:ssd300_stages`): its parameters stay on their
+    stage devices across steps.  Per step the runner streams the
+    microbatches through its stages and the rematerialized backward; the
+    mean gradients are written into each parameter's ``.grad`` and applied
+    by `TrainState.apply_gradients` and `update_ema`, so the schedule,
+    warmup, gradient accumulation, the EMA and checkpointing apply
+    unchanged.  Metrics: the mean ``loss``, ``cls_loss`` and ``loc_loss``
+    over the microbatches and the summed ``num_pos``, on the last stage's
+    device.  With one microbatch the step is `train_step`'s; with M the
+    gradients follow ``--grad-accum``'s mean.  Dropout-free models only:
+    no generator reaches the stages.
+
+    The eval step is the runner's forward, then the loss.  The priors are
+    copied once to the last stage's device."""
+    last = runner.aux_device
+    priors = torch.as_tensor(priors).to(last)
+
+    def pp_loss(out, aux) -> Tuple[torch.Tensor, MultiboxLoss]:
+        loc, conf = out
+        # Loss math in f32 whatever the model's compute dtype.
+        loss = multibox_loss(loc.float(), conf.float(), aux["boxes"],
+                             aux["classes"], aux["mask"], priors,
+                             loss_config)
+        return loss.total, loss
+
+    def _aux(batch) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(batch[k]).to(last, non_blocking=True)
+                for k in ("boxes", "classes", "mask")}
+
+    def _metrics(parts: Sequence[MultiboxLoss]) -> Dict[str, torch.Tensor]:
+        inv = 1.0 / len(parts)
+        mean = {key: sum(getattr(p, attr).detach() for p in parts) * inv
+                for key, attr in (("loss", "total"), ("cls_loss", "cls"),
+                                  ("loc_loss", "loc"))}
+        return {**mean, "num_pos": sum(p.num_pos for p in parts)
+                .to(torch.float32)}
+
+    def pp_train_step(state: TrainState, batch: Mapping[str, object]
+                      ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        _, grads, parts = runner.loss_and_grads(
+            torch.as_tensor(batch["images"]), pp_loss, aux=_aux(batch),
+            has_aux=True)
+        for stage, stage_grads in zip(runner.stages, grads):
+            params = dict(stage.named_parameters())
+            for name, g in stage_grads.items():
+                params[name].grad = g
+        if state.apply_gradients() and ema_decay:
+            state.update_ema(ema_decay)
+        return state, _metrics(parts)
+
+    @torch.no_grad()
+    def pp_eval_step(state: TrainState, batch: Mapping[str, object]
+                     ) -> Dict[str, torch.Tensor]:
+        state.model.eval()
+        out = runner.forward(torch.as_tensor(batch["images"]))
+        return _metrics([pp_loss(out, _aux(batch))[1]])
+
+    return pp_train_step, pp_eval_step

@@ -1,6 +1,5 @@
 """High-level Trainer: epochs, train/eval phases, checkpointing, resume —
-the port of `objectdetection_ssd_tpu/train/trainer.py:Trainer` (the
-pipeline-parallel branch is not ported).
+the port of `objectdetection_ssd_tpu/train/trainer.py:Trainer`.
 `enable_qat` turns on quantization-aware training.
 
 Per epoch: a train phase, then a loss-only eval ('test') phase over the
@@ -27,13 +26,22 @@ parallelism with a ``model`` axis, spatial partitioning with a
 then be built with ``shard=parallel.mesh.data_shard(mesh)``: every rank of
 one ``model`` or ``spatial`` group reads the same rows.  Checkpoints,
 TensorBoard and the log lines come from the primary only.
+
+With ``TrainConfig.pp_stages`` = N > 1 (``train --pp N``, JAX
+`trainer.py:59-90`) one process drives N pipeline stages on N devices
+(times ``pp_dp``; `parallel/pipeline.py`) through `train/loop.py:
+make_pp_steps`; the stages are the monolith's modules, so checkpoints stay
+monolithic and resume with or without ``--pp``.  It refuses a mesh, a
+process group, too few devices, a batch that the microbatches do not
+divide, microbatch rows that ``pp_dp`` does not divide, and QAT.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Callable, Dict, Iterator, List, Mapping, Optional
+from typing import (Callable, Dict, Iterator, List, Mapping, Optional,
+                    Sequence)
 
 import numpy as np
 import torch
@@ -66,7 +74,9 @@ class Trainer:
                  model: Optional[nn.Module] = None, priors=None,
                  device: DeviceLike = None,
                  init_state_dict: Optional[Mapping[str, torch.Tensor]]
-                 = None):
+                 = None,
+                 pp_build: Optional[Callable] = None,
+                 pp_devices: Optional[Sequence[DeviceLike]] = None):
         """``model`` / ``priors``: override the registry model and its
         prior set (tests, custom architectures).  ``device`` defaults to
         ``cuda`` (``cuda:LOCAL_RANK`` under a process group); the weights
@@ -79,7 +89,16 @@ class Trainer:
 
         Under a process group the mesh is built from the config
         (``mesh_shape``, ``mesh_axis_names``); without one there is no
-        mesh and no wrapper."""
+        mesh and no wrapper.
+
+        Pipeline parallelism (``config.train.pp_stages`` > 1):
+        ``pp_devices`` are the stages' devices, ``pp_stages * pp_dp`` of
+        them (`parallel/pipeline.py:PipelineRunner`), by default the first
+        CUDA cards, or the CPU for every stage with ``device="cpu"``; too
+        few cards raise.  ``pp_build``: the stage builder, ``(model,
+        num_stages, devices, microbatches, dp) -> PipelineRunner``
+        (default `parallel.pipeline.build_pipeline_for`, SSD300), whose
+        stages must be ``model``'s own modules."""
         self.n_proc = distributed.process_count()
         setup_logging(logging.INFO if distributed.is_primary()
                       else logging.WARNING)
@@ -87,6 +106,10 @@ class Trainer:
         self.device = resolve_device(device)
         if self.device.type == "cuda" and dist.is_initialized():
             self.device = torch.device("cuda", torch.cuda.current_device())
+        pp = config.train.pp_stages
+        if pp > 1:
+            pp_devices = self._pp_devices(config, pp_devices, self.device)
+            self.device = pp_devices[0]
         self.train_loader = train_loader
         self.eval_loader = eval_loader
         self.epoch_callback = epoch_callback
@@ -135,6 +158,23 @@ class Trainer:
             priors = priors_lib.priors_for_model(config.model, config.priors)
         self.priors = torch.tensor(np.asarray(priors), dtype=torch.float32,
                                    device=self.device)
+        self.pp_runner = None
+        self._steps = None
+        if pp > 1:
+            from objectdetection_ssd_torch.parallel import pipeline
+            build = pp_build or pipeline.build_pipeline_for
+            self.pp_runner = build(model, pp, pp_devices,
+                                   max(config.train.pp_microbatches, 1),
+                                   max(config.train.pp_dp, 1))
+            # The stages moved the parameters to their devices; the EMA
+            # follows them.
+            if self.state.ema is not None:
+                params = dict(model.named_parameters())
+                self.state.ema = {n: e.to(params[n].device)
+                                  for n, e in self.state.ema.items()}
+            self._steps = loop_lib.make_pp_steps(
+                self.pp_runner, self.priors, config.loss,
+                ema_decay=config.train.ema_decay)
         self.ckpt = CheckpointManager(
             config.train.checkpoint_dir,
             max_to_keep=config.train.max_checkpoints_to_keep)
@@ -149,13 +189,55 @@ class Trainer:
         if config.train.tensorboard_dir and distributed.is_primary():
             self.tb = TensorBoardWriter(config.train.tensorboard_dir)
 
+    @staticmethod
+    def _pp_devices(config: Config, devices: Optional[Sequence[DeviceLike]],
+                    device: torch.device) -> List[torch.device]:
+        """The pipeline's ``pp_stages * pp_dp`` devices (default: the first
+        CUDA cards, or the CPU for every stage when ``device`` is the CPU),
+        after JAX's refusals (`trainer.py:59-90`)."""
+        from objectdetection_ssd_torch.parallel.pipeline import (
+            SINGLE_CONTROLLER)
+        if config.train.mesh_shape is not None:
+            raise ValueError(
+                "--pp provides its own device placement; do not pass a "
+                "mesh (fsdp/tp/sp and pp are mutually exclusive)")
+        if dist.is_initialized():
+            raise ValueError(SINGLE_CONTROLLER)
+        pp = config.train.pp_stages
+        dp = max(config.train.pp_dp, 1)
+        if devices is None:
+            devices = ([device] * (pp * dp) if device.type == "cpu" else
+                       [torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())])
+        devs = [torch.device(d) for d in devices]
+        if len(devs) < pp * dp:
+            raise ValueError(f"--pp {pp} x --pp-dp {dp} needs {pp * dp} "
+                             f"devices; {len(devs)} available")
+        mb = max(config.train.pp_microbatches, 1)
+        if config.data.batch_size % mb:
+            raise ValueError(
+                f"batch size {config.data.batch_size} not divisible by "
+                f"--pp-microbatches {mb}")
+        if (config.data.batch_size // mb) % dp:
+            raise ValueError(
+                f"microbatch rows {config.data.batch_size // mb} not "
+                f"divisible by --pp-dp {dp}")
+        return devs[:pp * dp]
+
     def enable_qat(self, qtree: Mapping) -> None:
         """Train and evaluate from now on through the straight-through
         fake-quant convs of ``qtree`` (`infer.quant.act_scales`), so that
         the fine-tuned weights serve int8 with the same scales.  Calibrate
         after any init or resume: the scales must describe the weights
-        being fine-tuned (`cli train --qat` keeps that order)."""
+        being fine-tuned (`cli train --qat` keeps that order).  Refused
+        under ``--pp``: the stages have no fake-quant path."""
         from objectdetection_ssd_torch.infer.quant import scales_to
+        if self.pp_runner is not None:
+            raise ValueError(
+                "--qat does not compose with --pp (the staged programs "
+                "have no fake-quant path); QAT-train on the data, FSDP, "
+                "tensor or spatial strategies, then serve the checkpoint "
+                "however you like")
         self.quant_ste = scales_to(qtree, self.device)
 
     def maybe_resume(self) -> bool:
@@ -233,7 +315,12 @@ class Trainer:
                 current.wait_event(ready)
                 for t in batch.values():
                     t.record_stream(current)
-            if train:
+            if self._steps is not None:
+                if train:
+                    self.state, metrics = self._steps[0](self.state, batch)
+                else:
+                    metrics = self._steps[1](self.state, batch)
+            elif train:
                 self.state, metrics = loop_lib.train_step(
                     self.state, batch, self.priors, cfg.loss,
                     ema_decay=cfg.train.ema_decay, seed=cfg.train.seed,

@@ -58,6 +58,8 @@ CASES = [
      "--transfer-dtype", "float32", "--checkpoint-dir", "ck"],
     ["train", "--backbone", "resnet34", "--remat", "--init-torch-resnet34",
      "r34.pth", "--nms-method", "soft_linear"],
+    ["train", "--pp", "4", "--pp-microbatches", "4", "--pp-dp", "2",
+     "--batch-size", "16"],
     ["train", "--remat", "--init-torch-vgg16", "vgg.pth", "--tta-flip"],
     ["train", "--init-reference-ckpt", "ref.pth", "--soft-nms-sigma", "0.3"],
     ["eval", "--backbone", "resnet34", "--nms-method", "soft_gaussian",
@@ -108,8 +110,10 @@ def test_device_defaults_to_cuda_and_unported_flags_are_refused():
     assert _parse(cli, ["train", "--tp", "2"]).tp == 2
     assert _parse(cli, ["train", "--sp", "2"]).sp == 2
     assert _parse(cli, ["eval", "--tp", "2"]).tp == 2
-    for argv in (["train", "--pp", "2"], ["train", "--pp-dp", "2"],
-                 ["train", "--pp-microbatches", "2"],
+    args = _parse(cli, ["train", "--pp", "2", "--pp-dp", "2",
+                        "--pp-microbatches", "4"])
+    assert (args.pp, args.pp_dp, args.pp_microbatches) == (2, 2, 4)
+    for argv in (["eval", "--pp", "2"],
                  ["detect", "x.jpg", "--tp", "2"],
                  ["export", "--out-dir", "x", "--scoped-vmem-kib", "4"],
                  ["doctor", "--compilation-cache", "x"]):

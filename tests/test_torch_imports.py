@@ -53,6 +53,7 @@ MODULES = (
     "objectdetection_ssd_torch.parallel.collectives",
     "objectdetection_ssd_torch.parallel.tensor_parallel",
     "objectdetection_ssd_torch.parallel.spatial",
+    "objectdetection_ssd_torch.parallel.pipeline",
     "objectdetection_ssd_torch.cli",
 )
 # What a spawn worker of the Loader imports, and the CLI's module (the
@@ -133,17 +134,28 @@ def test_no_silent_cpu_fallback_without_cuda(monkeypatch):
 
 
 def test_unported_options_raise():
-    """What is still unported is refused, not silently ignored: the
-    pipeline-parallel strategy has no flag and no module in the port.
-    The doctor, --fsdp, --tp, --sp, --draw and `parallel/` are ported; one
-    process refuses --tp and --sp, whose axis must divide the processes."""
+    """What the port refuses is refused, not silently ignored.  Every
+    training feature is ported now, pipeline parallelism included
+    (``--pp``, `parallel/pipeline.py`); the pipeline's flags without
+    ``--pp`` are refused, and so is ``--pp`` beside another strategy or on
+    fewer cards than its stages.  One process refuses --tp and --sp, whose
+    axis must divide the processes."""
     import importlib
     import dataclasses
+    from unittest import mock
     from objectdetection_ssd_torch import cli, config
 
-    for argv in (["train", "--pp", "2"], ["train", "--pp-dp", "2"]):
-        with pytest.raises(SystemExit):
+    for argv in (["train", "--pp-dp", "2", "--device", "cpu"],
+                 ["train", "--pp-microbatches", "2", "--device", "cpu"]):
+        with pytest.raises(SystemExit, match="require --pp N"):
             cli.main(argv)
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        cli.main(["train", "--pp", "2", "--tp", "2", "--device", "cpu"])
+    with mock.patch.object(torch.cuda, "is_available", lambda: True), \
+            mock.patch.object(torch.cuda, "device_count", lambda: 1):
+        with pytest.raises(SystemExit, match="--pp 2 x --pp-dp 1 needs 2 "
+                           "devices; 1 available"):
+            cli.main(["train", "--pp", "2"])
     for argv in (["train", "--tp", "2", "--device", "cpu"],
                  ["train", "--sp", "2", "--device", "cpu"]):
         with pytest.raises(SystemExit, match="does not divide the 1"):
@@ -152,12 +164,11 @@ def test_unported_options_raise():
         cli.main(["eval", "--tp", "2", "--device", "cpu"])
     fields = {f.name for f in dataclasses.fields(config.TrainConfig)}
     assert {"mesh_shape", "mesh_axis_names", "tensorboard_dir"} <= fields
-    assert not {"pp_stages", "pp_microbatches", "pp_dp"} & fields
+    assert {"pp_stages", "pp_microbatches", "pp_dp"} <= fields
     for module in ("objectdetection_ssd_torch.utils.doctor",
                    "objectdetection_ssd_torch.parallel",
                    "objectdetection_ssd_torch.parallel.mesh",
                    "objectdetection_ssd_torch.parallel.tensor_parallel",
-                   "objectdetection_ssd_torch.parallel.spatial"):
+                   "objectdetection_ssd_torch.parallel.spatial",
+                   "objectdetection_ssd_torch.parallel.pipeline"):
         importlib.import_module(module)
-    with pytest.raises(ModuleNotFoundError):
-        importlib.import_module("objectdetection_ssd_torch.parallel.pipeline")

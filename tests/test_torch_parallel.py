@@ -251,19 +251,22 @@ def test_initialize_noop_half_configured_and_torchrun(monkeypatch):
 
 
 def test_cli_checks_the_world_size(monkeypatch):
-    """`train --fsdp` must divide the processes, `train --qat` refuses a
-    mesh, `eval --data-parallel` must equal the world size; each exits
-    before it reads a dataset."""
+    """`train --fsdp` must divide the processes and `eval --data-parallel`
+    must equal the world size, each exiting before it reads a dataset;
+    `train --qat` trains under a mesh, so it passes the guards and reads
+    the (here missing) dataset."""
     from objectdetection_ssd_torch import cli
     monkeypatch.setattr(distributed, "initialize",
                         lambda device=None: torch.device("cpu"))
     monkeypatch.setattr(distributed, "process_count", lambda: 2)
     with pytest.raises(SystemExit, match="--fsdp 4 does not divide the 2"):
         cli.main(["train", "--fsdp", "4", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="--qat under a mesh"):
-        cli.main(["train", "--qat", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="--qat under a mesh"):
-        cli.main(["train", "--qat", "--fsdp", "2", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="VOC list file"):
+        cli.main(["train", "--qat", "--device", "cpu", "--voc-root",
+                  "no-such-VOCdevkit"])
+    with pytest.raises(FileNotFoundError, match="VOC list file"):
+        cli.main(["train", "--qat", "--fsdp", "2", "--device", "cpu",
+                  "--voc-root", "no-such-VOCdevkit"])
     with pytest.raises(SystemExit,
                        match="--data-parallel 4 does not match the world "
                              "size 2"):

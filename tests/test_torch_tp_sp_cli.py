@@ -52,8 +52,7 @@ def processes(monkeypatch):
 ], ids=lambda a: " ".join(a))
 def test_train_guards_match_jax(processes, argv):
     """The port's eight processes against JAX's eight devices: the same
-    message up to the word for them (JAX's mutual-exclusion message also
-    names the pipeline stages, which the port refuses at parse)."""
+    message up to the word for them."""
     with pytest.raises(SystemExit) as want:
         jcli.cmd_train(_parse(jcli, argv))
     processes(8)
@@ -68,8 +67,9 @@ def test_train_guards_match_jax(processes, argv):
 
 @pytest.mark.parametrize("argv,match", [
     (["train", "--tp", "4"], "--tp 4 does not divide the 2 processes"),
-    (["train", "--qat", "--tp", "2"], "--qat under a mesh"),
-    (["train", "--qat", "--sp", "2"], "--qat under a mesh"),
+    # QAT trains under a mesh: past the guards, to the (missing) data.
+    (["train", "--qat", "--tp", "2"], (FileNotFoundError, "VOC list file")),
+    (["train", "--qat", "--sp", "2"], (FileNotFoundError, "VOC list file")),
     (["eval", "--tp", "2", "--sp", "2"],
      r"--tp and --sp are mutually exclusive \(one secondary eval-mesh "
      r"axis\)"),
@@ -79,15 +79,23 @@ def test_train_guards_match_jax(processes, argv):
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else "")
 def test_cli_guards_on_two_processes(processes, argv, match):
     processes(2)
-    with pytest.raises(SystemExit, match=match):
+    error, match = match if isinstance(match, tuple) else (SystemExit,
+                                                           match)
+    with pytest.raises(error, match=match):
         cli.main(argv + ["--device", "cpu"])
 
 
-def test_pipeline_flags_stay_refused():
-    for argv in (["train", "--pp", "2"], ["train", "--pp-dp", "2"],
+def test_pipeline_flags_stay_refused(processes):
+    """The pipeline's flags are refused where JAX refuses them: without
+    ``--pp``, and ``--pp`` itself under a process group (one process
+    drives every stage)."""
+    for argv in (["train", "--pp-dp", "2"],
                  ["train", "--pp-microbatches", "2"]):
-        with pytest.raises(SystemExit):
-            cli.main(argv)
+        with pytest.raises(SystemExit, match="require --pp N"):
+            cli.main(argv + ["--device", "cpu"])
+    processes(2)
+    with pytest.raises(SystemExit, match="--pp is single-controller"):
+        cli.main(["train", "--pp", "2", "--device", "cpu"])
 
 
 # ------------------------------------------------------ two spawned ranks

@@ -1,6 +1,7 @@
 """What the spawned gloo ranks of the tensor- and spatial-parallel tests
 run (`tests/test_torch_tp.py`, `test_torch_sp.py`, `test_torch_sp_uneven.py`,
-`test_torch_tp_sp_cli.py`), and the launcher of every spawned-rank test.
+`test_torch_tp_sp_cli.py`) and of QAT under a mesh
+(`test_torch_qat_mesh.py`), and the launcher of every spawned-rank test.
 
 A spawned rank imports the module of the function it runs, so this one
 imports torch and the port only: no JAX, no JAX package, no test module
@@ -89,21 +90,32 @@ def _rank_main(rank, fn, world, init_file, threads, args):
         dist.destroy_process_group()
 
 
-def run_ranks(fn, world, tmp_path, *args, threads=1):
-    """``fn(rank, world, *args)`` in ``world`` spawned processes joined in
-    a gloo process group; re-raises a rank's failure here."""
+def start_ranks(fn, world, tmp_path, *args, threads=1):
+    """Start ``fn(rank, world, *args)`` in ``world`` spawned processes
+    joined in a gloo process group; returns the function that waits for
+    them and re-raises a rank's failure there."""
     # A fresh rendezvous file per group: a used one holds stale addresses.
     init_file = str(tmp_path / f"pg{world}-{time.monotonic_ns()}")
     ctx = mp.start_processes(
         _rank_main, args=(fn, world, init_file, threads, args),
         nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + RANK_TIMEOUT_S
-    while not ctx.join(timeout=5):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            raise TimeoutError(f"{world} ranks still running after "
-                               f"{RANK_TIMEOUT_S} s")
+
+    def join():
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"{world} ranks still running after "
+                                   f"{RANK_TIMEOUT_S} s")
+
+    return join
+
+
+def run_ranks(fn, world, tmp_path, *args, threads=1):
+    """``fn(rank, world, *args)`` in ``world`` spawned processes joined in
+    a gloo process group; re-raises a rank's failure here."""
+    start_ranks(fn, world, tmp_path, *args, threads=threads)()
 
 
 # ------------------------------------------------------------------ inputs
@@ -540,3 +552,115 @@ def rank_cli(rank, world, root, port, out):
         printed[name] = text.getvalue()
         dist.barrier()
     torch.save(printed, f"{out}.{rank}")
+
+
+# --------------------------------------------------------- QAT on a mesh
+
+
+class PortTinyQ(nn.Module):
+    """`tests/test_torch_quant_train.py:TTinyQ`: (B, 16, 16, 3) -> 16
+    priors through three `TorchConv`s, the only layer QAT quantizes."""
+
+    dtype = torch.float32
+
+    def __init__(self):
+        super().__init__()
+        self.stem = TorchConv(3, 8, kernel=3, stride=4, padding=1)
+        self.loc = TorchConv(8, 4, kernel=3, padding=1)
+        self.conf = TorchConv(8, 21, kernel=3, padding=1)
+
+    def forward(self, x, generator=None, remat=False):    # NHWC
+        x = F.relu(self.stem(x.permute(0, 3, 1, 2)))
+        return flatten_head(self.loc(x), 4), flatten_head(self.conf(x), 21)
+
+
+def qat_step(model_config, optim, state_dict, batch, priors, qtree,
+             mesh=None, model=None, conv_noise=None):
+    """One QAT step: (global metrics, whole parameters after it).
+    ``conv_noise``: a generator; every conv output is then moved by one
+    ulp up or down at random (another summation order's rounding)."""
+    state = tstate.create_train_state(
+        model_config, optim, device="cpu", state_dict=state_dict,
+        model=model, mesh=mesh)
+    if conv_noise is not None:
+        def ulp(module, args, out):
+            sign = torch.randint(0, 2, out.shape, generator=conv_noise) * 2 - 1
+            return out * (1 + 2.0 ** -23 * sign)
+        for m in state.model.modules():
+            if isinstance(m, TorchConv):
+                m.register_forward_hook(ulp)
+    state, metrics = tloop.train_step(state, batch, torch.as_tensor(priors),
+                                      quant_ste=qtree)
+    return ({k: float(v) for k, v in metrics.items()},
+            {n: full_tensor(p.detach()).clone()
+             for n, p in state.model.named_parameters()})
+
+
+@contextlib.contextmanager
+def xla_weight_scale():
+    """QAT's per-channel weight scales as XLA computes JAX's under `jit`:
+    ``max|w|`` times the f32 reciprocal of 127 (a constant divisor becomes
+    a multiply), an ulp from the division the port and eager JAX do.  A
+    weight that lands on a rounding tie then rounds the other way."""
+    original = layers.k3.weight_scale
+    recip = torch.tensor(1.0 / layers.k3.QMAX, dtype=torch.float32)
+
+    def scale(weight):
+        w = weight.detach().float()
+        return torch.clamp_min(w.abs().amax(dim=(1, 2, 3)) * recip, 1e-12)
+
+    layers.k3.weight_scale = scale
+    try:
+        yield
+    finally:
+        layers.k3.weight_scale = original
+
+
+def rank_qat(rank, world, inputs, root, port, out):
+    """QAT steps on this rank's meshes: the small model's under ``data``
+    (DDP) and ``data x fsdp`` (FSDP2) on this rank's rows, SSD300's under
+    ``data x model`` and ``data x spatial`` on its data shard (the whole
+    batch); then ``cli train --qat --tp 2`` as torchrun's ranks run it,
+    recording the scale tree each rank trains with.  The SSD300 steps run
+    again under `xla_weight_scale` (keys ``model_xla``, ``spatial_xla``),
+    to be held against JAX's jitted steps."""
+    inp = torch.load(inputs, weights_only=False)
+    tiny, ssd = inp["tiny"], inp["ssd"]
+    b = len(tiny["batch"]["images"]) // world
+    rows = {k: v[rank * b:(rank + 1) * b] for k, v in tiny["batch"].items()}
+    result = {}
+    for key, shape, axes in (("data", (world,), ("data",)),
+                             ("fsdp", (1, world), ("data", "fsdp"))):
+        mesh = mesh_lib.create_mesh(shape, axes, "cpu")
+        model = PortTinyQ()
+        model.load_state_dict(tiny["state_dict"])
+        result[key] = qat_step(tconfig.ModelConfig(), tiny["optim"], None,
+                               rows, tiny["priors"], tiny["qtree"], mesh,
+                               model)
+    for key, axis in (("model", "model"), ("spatial", "spatial")):
+        mesh = mesh_lib.create_mesh((1, world), ("data", axis), "cpu")
+        for suffix, scales in (("", contextlib.nullcontext()),
+                               ("_xla", xla_weight_scale())):
+            with scales:
+                result[key + suffix] = qat_step(
+                    tconfig.ModelConfig(), ssd["optim"],
+                    torch.load(ssd["weights"]), ssd["batch"],
+                    tpriors.ssd300_priors(), ssd["qtree"], mesh)
+
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
+                       "LOCAL_RANK": str(rank), "MASTER_ADDR": "127.0.0.1",
+                       "MASTER_PORT": str(port)})
+    seen = []
+    original = Trainer.enable_qat
+
+    def recording(self, qtree):
+        seen.append(qtree)
+        return original(self, qtree)
+
+    Trainer.enable_qat = recording
+    try:
+        assert cli.main(inp["cli_argv"]) == 0
+    finally:
+        Trainer.enable_qat = original
+    result["cli_scales"] = seen
+    torch.save(result, f"{out}.{rank}")
