@@ -73,6 +73,11 @@ and 4-stage forwards, dp = 2 against dp = 1, a routed step (K2 counted,
 4 per microbatch), the bf16 batch-32 step's time and peak memory beside
 the monolithic step's, a `Trainer.fit` epoch whose checkpoint a
 monolithic Trainer resumes, and `cli train --pp 2` refused on one card.
+Phase "api" runs before the parallel phases: the package-level names,
+each legacy box op (`mixed_class_nms`, `decode_tanh`, the (y, x, y, x)
+shuffles, `pairwise_iou_rescaled`) on the card against the CPU,
+`create_global_mesh` with no process group, and the two-stage
+`build_ssd300_pipeline` bit-equal to the monolithic f32 forward.
 Then one JSON line with each kernel's
 numbers, the card's name and power limit as nvidia-smi gives them, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -4235,6 +4240,165 @@ def phase_pp(device, batch: int = TRAIN_BATCH,
     return out
 
 
+# Phase "api": the JAX package's remaining public names (the package-level
+# imports, the legacy box ops, the two-stage pipeline, create_global_mesh).
+API_NMS_SETS = (8, 200)      # mixed_class_nms: 8 sets of a serving top-200
+API_SHUFFLE_BATCH = 8        # the (y, x, y, x) shuffles over SSD300's priors
+API_DECODE_BATCH = 256       # decode_tanh over the 189 zoom/ratio priors
+API_GT_BOXES = 24            # pairwise_iou_rescaled: raw GT per image
+# Card floats against the CPU's: tanh and the IoU's division may round an
+# ulp apart; every value is at most ~1.5.
+API_FLOAT_TOL = 1e-6
+
+
+def api_box_inputs(gen: torch.Generator) -> dict:
+    """Inputs of the legacy box ops at serving sizes, drawn from ``gen`` on
+    the CPU; probabilities on a 1/20 grid, so that ties occur."""
+    from objectdetection_ssd_torch.ops.boxes import cxcywh_to_xyxy
+    from objectdetection_ssd_torch.ops.priors import (ssd300_priors,
+                                                      zoom_ratio_priors)
+    b, n = API_NMS_SETS
+    ctr = torch.rand(b, n, 2, generator=gen) * 0.6 + 0.2
+    wh = torch.rand(b, n, 2, generator=gen) * 0.35 + 0.05
+    priors = torch.tensor(ssd300_priors())
+    zoom, grid = zoom_ratio_priors(reference_order=False)
+    sizes = torch.randint(200, 641, (API_SHUFFLE_BATCH, 1, 2),
+                          generator=gen).float()
+    lo = torch.rand(API_SHUFFLE_BATCH, API_GT_BOXES, 2, generator=gen) * 0.6
+    hi = lo + torch.rand(API_SHUFFLE_BATCH, API_GT_BOXES, 2,
+                         generator=gen) * 0.35 + 0.05
+    return {
+        "nms": (torch.cat([ctr - wh / 2, ctr + wh / 2], -1),
+                torch.randint(0, 20, (b, n), generator=gen),
+                torch.randint(1, 21, (b, n), generator=gen) / 20.0),
+        "boxes": torch.rand(API_SHUFFLE_BATCH, *priors.shape, generator=gen),
+        "tanh": (torch.randn(API_DECODE_BATCH, *zoom.shape, generator=gen)
+                 * 1.5, torch.tensor(zoom), torch.tensor(grid)),
+        "rescaled": (torch.cat([lo, hi], -1) * sizes.repeat(1, 1, 2), sizes,
+                     cxcywh_to_xyxy(priors).expand(API_SHUFFLE_BATCH, -1,
+                                                   -1) * 300.0),
+    }
+
+
+def api_box_ops(inputs: dict, device) -> dict:
+    """Each legacy box op of `ops/boxes.py` on ``inputs`` moved to
+    ``device``; the results on the CPU."""
+    from objectdetection_ssd_torch.ops import boxes
+
+    def on(*ts):
+        return [t.to(device) for t in ts]
+
+    xyxy, classes, probs = on(*inputs["nms"])
+    pred, zoom, grid = on(*inputs["tanh"])
+    raw, sizes, other = on(*inputs["rescaled"])
+    (b,) = on(inputs["boxes"])
+    out = {"mixed_class_nms": boxes.mixed_class_nms(xyxy, classes, probs,
+                                                    0.45),
+           "decode_tanh": boxes.decode_tanh(pred, zoom, grid),
+           "pairwise_iou_rescaled (one size)": boxes.pairwise_iou_rescaled(
+               raw[0], sizes[0, 0], other[0]),
+           "pairwise_iou_rescaled (per image)":
+               boxes.pairwise_iou_rescaled(raw, sizes, other)}
+    for fn in ("xyxy_to_yxyx", "yxyx_to_xyxy", "cxcywh_to_yxyx",
+               "yxyx_to_cxcywh"):
+        out[fn] = getattr(boxes, fn)(b)
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def phase_api(device, batch: int = TRAIN_BATCH) -> dict:
+    """The JAX package's remaining public names in the port, on the card:
+    the package-level imports; each legacy box op on CUDA tensors against
+    its CPU result (masks and shuffles equal, floats within
+    API_FLOAT_TOL); `create_global_mesh` with no process group up (a
+    one-rank ``data`` mesh); the two-stage `build_ssd300_pipeline` on
+    [card, card] against the monolithic SSD300 f32 forward at ``batch``,
+    cuDNN deterministic: bit-equal; and ``devices=None`` refused on fewer
+    than two cards, with no CPU fallback."""
+    import objectdetection_ssd_torch as pkg
+    from objectdetection_ssd_torch import config
+    from objectdetection_ssd_torch.models.ssd import build_model
+    from objectdetection_ssd_torch.ops.priors import ssd_paper_scale
+    from objectdetection_ssd_torch.parallel import distributed, mesh
+    from objectdetection_ssd_torch.parallel.pipeline import (
+        SSD300HeadStage, SSD300TrunkStage, build_ssd300_pipeline)
+
+    t0 = time.perf_counter()
+    out = {}
+    if pkg.Config is not config.Config or pkg.__version__ != "0.3.0":
+        fail("api: the package-level names are not the submodules'")
+    if [ssd_paper_scale(k) for k in range(1, 7)] != [
+            0.2, 0.34, 0.48, 0.62, 0.76, 0.9]:
+        fail("api: ssd_paper_scale(1..6)")
+
+    inputs = api_box_inputs(torch.Generator().manual_seed(SEED + 40))
+    got = api_box_ops(inputs, device)
+    want = api_box_ops(inputs, torch.device("cpu"))
+    out["boxes"] = {}
+    for name, w in want.items():
+        g = got[name]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"api: {name} gave {tuple(g.shape)} {g.dtype} on the card, "
+                 f"{tuple(w.shape)} {w.dtype} on the CPU")
+        err = 0.0 if not w.is_floating_point() else float(
+            (g - w).abs().max())
+        if not w.is_floating_point() or name in ("xyxy_to_yxyx",
+                                                 "yxyx_to_xyxy"):
+            ok = torch.equal(g, w)
+        else:
+            ok = err <= API_FLOAT_TOL and bool(torch.isfinite(g).all())
+        if not ok:
+            fail(f"api: {name} on the card differs from the CPU ({err:.3e})")
+        out["boxes"][name] = err
+    out["suppressed"] = int((~got["mixed_class_nms"]).sum())
+
+    if torch.distributed.is_initialized():
+        fail("api: a process group is up before create_global_mesh")
+    m = distributed.create_global_mesh(device_type=device.type)
+    if m.mesh_dim_names != ("data",) or mesh.data_shard(m) != (0, 1):
+        fail(f"api: create_global_mesh gave {m}")
+    out["mesh"] = str(m)
+
+    model = build_model(config.ModelConfig(), device="cpu",
+                        generator=torch.Generator().manual_seed(SEED)
+                        ).to(device)
+    x = torch.randint(0, 256, (batch, 300, 300, 3), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(SEED + 41)
+                      ).to(device)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            mono = model(x)
+        runner = build_ssd300_pipeline(model, devices=[device, device])
+        if [type(s) for s in runner.stages] != [SSD300TrunkStage,
+                                                SSD300HeadStage]:
+            fail(f"api: the pipeline's stages are {runner.stages}")
+        piped = runner.forward(x)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out["pipeline_bit_equal"] = all(torch.equal(p, w)
+                                    for p, w in zip(piped, mono))
+    out["pipeline_rel"] = rel_diff(piped, [t.cpu() for t in mono])
+    if not out["pipeline_bit_equal"]:
+        fail(f"api: the two-stage pipeline's forward differs from the "
+             f"monolith's by {out['pipeline_rel']:.3e} of the largest")
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        try:
+            build_ssd300_pipeline(model)
+        except RuntimeError as e:
+            out["default_devices"] = str(e)
+        else:
+            fail(f"api: build_ssd300_pipeline took devices=None on {cards} "
+                 f"card(s)")
+    else:
+        out["default_devices"] = f"{cards} cards: not checked"
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k1-baseline", type=Path, action="append",
@@ -4677,6 +4841,21 @@ def main(argv=None) -> int:
           f"the phase took {time.perf_counter() - t_phase:.1f} s")
     k1_launches += ex["k1"]
     k3_launches += ex["k3"]
+
+    # The JAX package's remaining public names, before any process group.
+    ap = phase_api(device)
+    print(f"api: package-level names == the submodules'; the legacy box ops "
+          f"on the card vs the CPU ({smi}): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in ap["boxes"].items())
+          + f" (masks and shuffles equal, floats within {API_FLOAT_TOL:.0e};"
+          f" mixed_class_nms suppressed {ap['suppressed']} of "
+          f"{API_NMS_SETS[0] * API_NMS_SETS[1]}); create_global_mesh with no "
+          f"process group: {ap['mesh']}; build_ssd300_pipeline on [cuda, "
+          f"cuda], f32 batch {TRAIN_BATCH}, cuDNN deterministic, vs the "
+          f"monolith: {'bit-equal' if ap['pipeline_bit_equal'] else 'not bit-equal'}"
+          f" ({ap['pipeline_rel']:.3e}); devices=None: "
+          f"{ap['default_devices']}")
+    print(f"api phase took {ap['ms']:.1f} ms")
 
     # Data parallelism: the two-rank gloo leg, then the wrappers, the CLI
     # and the multi-rank eval under a one-rank NCCL group joined through

@@ -13,7 +13,9 @@ two agree bit for bit on f32 inputs:
     `Util.py:288-301`).
 
 The greedy-NMS kernel (`csrc/nms.cu`) computes its IoU with the same
-expression.
+expression.  The legacy ops of the reference's notebook code follow:
+`decode_tanh`, `mixed_class_nms`, the (y, x, y, x) converters and
+`pairwise_iou_rescaled`.
 """
 
 from __future__ import annotations
@@ -84,3 +86,95 @@ def pairwise_iou(a_xyxy: torch.Tensor, b_xyxy: torch.Tensor) -> torch.Tensor:
     inter = pairwise_intersection(a_xyxy, b_xyxy)
     union = area(a_xyxy)[..., :, None] + area(b_xyxy)[..., None, :] - inter
     return inter / union
+
+
+def decode_tanh(pred: torch.Tensor, priors_cxcywh, grid_sizes
+                ) -> torch.Tensor:
+    """fastai-style tanh-bounded decode of the zoom/ratio anchor variant
+    (reference `get_p_bbox_labels_za`, `Util.py:409-424`):
+
+        xy = tanh(p)[..., :2] / 2 * grid_size + prior_xy
+        wh = (tanh(p)[..., 2:] / 2 + 1) * prior_wh
+
+    ``priors_cxcywh`` (P, 4) and ``grid_sizes`` (P,) are the pair that
+    `ops.priors.zoom_ratio_priors` returns (arrays or tensors; they move to
+    ``pred``'s device).  A legacy decode: both model families decode with
+    `decode`."""
+    priors = torch.as_tensor(priors_cxcywh, device=pred.device)
+    gs = torch.as_tensor(grid_sizes, device=pred.device)[..., :, None]
+    t = torch.tanh(pred)
+    xy = t[..., :2] / 2.0 * gs + priors[..., :2]
+    wh = (t[..., 2:] / 2.0 + 1.0) * priors[..., 2:]
+    return torch.cat([xy, wh], dim=-1)
+
+
+def mixed_class_nms(boxes_xyxy: torch.Tensor, classes: torch.Tensor,
+                    probs: torch.Tensor,
+                    overlap_threshold: float = 0.5) -> torch.Tensor:
+    """Single-pass NMS over a mixed-class detection set: the suppression
+    rule of the reference's standalone `nms` (`Util.py:519-553`, never
+    called by its `inference`).
+
+    A box is suppressed iff another box of the same class has IoU strictly
+    greater than ``overlap_threshold`` with it and a probability greater
+    than or equal to its own: ties suppress both, and a box never
+    suppresses itself.  One comparison over all pairs, no sequential
+    dependency.
+
+    Args: boxes_xyxy (..., n, 4); classes (..., n) int; probs (..., n).
+    Returns: the (..., n) bool keep mask."""
+    iou = pairwise_iou(boxes_xyxy, boxes_xyxy)
+    n = boxes_xyxy.shape[-2]
+    eye = torch.eye(n, dtype=torch.bool, device=boxes_xyxy.device)
+    over = (iou > overlap_threshold) & ~eye
+    same = classes[..., :, None] == classes[..., None, :]
+    geq = probs[..., None, :] >= probs[..., :, None]     # prob_j >= prob_i
+    return ~(over & same & geq).any(dim=-1)
+
+
+# The reference's (y, x, y, x) converters, used only by its notebook cells
+# (`Util.py:45-54, 65-84, 354-368`): pure axis shuffles over (..., 4).  A
+# list, not a tuple: a tuple would index one dimension per entry.
+_SWAP_XY = [1, 0, 3, 2]
+
+
+def xyxy_to_yxyx(boxes: torch.Tensor) -> torch.Tensor:
+    """(x1, y1, x2, y2) -> (y1, x1, y2, x2) (`Util.py:45-54`)."""
+    return boxes[..., _SWAP_XY]
+
+
+def yxyx_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    """(y1, x1, y2, x2) -> (x1, y1, x2, y2) (`Util.py:65-84`)."""
+    return boxes[..., _SWAP_XY]
+
+
+def cxcywh_to_yxyx(boxes: torch.Tensor) -> torch.Tensor:
+    """(cx, cy, w, h) -> (y1, x1, y2, x2) corners (reference
+    `xywh_to_yxyx`, `Util.py:87-96`; its "xywh" is center-based)."""
+    return xyxy_to_yxyx(cxcywh_to_xyxy(boxes))
+
+
+def yxyx_to_cxcywh(boxes: torch.Tensor) -> torch.Tensor:
+    """(y1, x1, y2, x2) -> (cx, cy, w, h) (reference `get_xywh_from_yxyx`,
+    `Util.py:354-368`)."""
+    return xyxy_to_cxcywh(yxyx_to_xyxy(boxes))
+
+
+def pairwise_iou_rescaled(raw_gt_xyxy: torch.Tensor, image_wh,
+                          other_xyxy: torch.Tensor,
+                          target_size: float = 300.0) -> torch.Tensor:
+    """IoU of raw-pixel GT boxes (..., n1, 4) against ``target_size``-frame
+    boxes (..., n2, 4): the reference's `get_jaccard_tensor`
+    (`Util.py:267-286`) rescales the GT by the image's (w, h) into the
+    300 x 300 frame first.
+
+    ``image_wh`` is one (2,) size, or sizes that broadcast as (w, h, w, h)
+    against the GT boxes: (..., 1, 2) per image, (..., n1, 2) per box.  It
+    becomes f32 on the boxes' device."""
+    dev = raw_gt_xyxy.device
+    wh = torch.as_tensor(image_wh, dtype=torch.float32, device=dev)
+    # A tensor numerator: a Python number over a tensor is computed as a
+    # multiply by the reciprocal, which can round differently.
+    target = torch.tensor(target_size, dtype=torch.float32, device=dev)
+    scale = target / torch.cat([wh, wh], dim=-1)
+    return pairwise_iou(raw_gt_xyxy * scale, other_xyxy)

@@ -13,6 +13,7 @@
 * `resnet34_priors` pairs with `models.ssd.SSDResNet34`: the same 189
   boxes, cells row-major as the heads flatten them, (cx, cy, w, h), clipped
   to [0, 1].  The two generators order cells differently.
+* `ssd_paper_scale` is the SSD paper's scale formula.
 """
 
 from __future__ import annotations
@@ -138,3 +139,11 @@ def priors_for_model(model_config: ModelConfig,
     if model_config.backbone == "resnet34":
         return resnet34_priors()
     raise ValueError(f"unknown backbone: {model_config.backbone!r}")
+
+
+def ssd_paper_scale(k: int) -> float:
+    """The SSD paper's scale s_k = 0.2 + 0.7 (k-1)/5 rounded to 2 decimals
+    with Python's ``round``, as JAX's; the reference's unused alternative
+    to its hand-picked scales (`Util.py:140-141`).
+    ssd_paper_scale(1..6) = [0.2, 0.34, 0.48, 0.62, 0.76, 0.9]."""
+    return round(0.2 + 0.7 * (k - 1) / 5.0, 2)

@@ -9,18 +9,19 @@ unchanged on one card or on many:
 
     torchrun --nproc-per-node 4 -m objectdetection_ssd_torch.cli train ...
 
-`process_index`, `process_count`, `is_primary` and `local_shard_bounds`
-answer for a single process (0, 1, True, the whole batch) when no process
-group is up.
+`process_index`, `process_count`, `is_primary`, `local_shard_bounds` and
+`create_global_mesh` answer for a single process (0, 1, True, the whole
+batch, a one-rank mesh) when no process group is up.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from objectdetection_ssd_torch.device import DeviceLike, resolve_device
 
@@ -59,6 +60,23 @@ def initialize(device: DeviceLike = None) -> torch.device:
             world_size=int(env["WORLD_SIZE"]),
             device_id=dev if dev.type == "cuda" else None)
     return dev
+
+
+def create_global_mesh(axis_names: Tuple[str, ...] = ("data",),
+                       mesh_shape: Optional[Tuple[int, ...]] = None,
+                       device_type: str = "cuda") -> DeviceMesh:
+    """A mesh over every process of the job (JAX: every process's chips):
+    `parallel.mesh.create_mesh` over the ranks of the process group.  With
+    no group up, the one process alone: a one-rank mesh of the same axes,
+    with no process groups behind it, since there is no other rank to talk
+    to."""
+    from objectdetection_ssd_torch.parallel import mesh as mesh_lib
+
+    if dist.is_initialized():
+        return mesh_lib.create_mesh(mesh_shape, axis_names, device_type)
+    shape, names = mesh_lib.mesh_layout(mesh_shape, axis_names, 1)
+    return DeviceMesh(device_type, torch.zeros(shape, dtype=torch.int),
+                      mesh_dim_names=names, _init_backend=False, _rank=0)
 
 
 def process_count() -> int:

@@ -36,11 +36,11 @@ BATCH_AXES = ("data", "fsdp")
 SECONDARY_AXES = ("model", "spatial")
 
 
-def create_mesh(mesh_shape: Optional[Tuple[int, ...]] = None,
-                axis_names: Sequence[str] = ("data",),
-                device_type: str = "cuda") -> DeviceMesh:
-    """A mesh over every process of the initialized process group; the
-    default puts them all on the first axis (``data``)."""
+def mesh_layout(mesh_shape: Optional[Tuple[int, ...]],
+                axis_names: Sequence[str], n: int
+                ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """``(shape, axis names)`` of a mesh over ``n`` processes, checked;
+    the default shape puts them all on the first axis."""
     axis_names = tuple(axis_names)
     for name in axis_names:
         if name not in BATCH_AXES + SECONDARY_AXES:
@@ -49,7 +49,6 @@ def create_mesh(mesh_shape: Optional[Tuple[int, ...]] = None,
     if len([a for a in axis_names if a != "data"]) > 1:
         raise ValueError(f"mesh axes {axis_names}: one axis beside 'data' "
                          "at a time")
-    n = distributed.process_count()
     if mesh_shape is None:
         mesh_shape = (n,) + (1,) * (len(axis_names) - 1)
     mesh_shape = tuple(int(s) for s in mesh_shape)
@@ -62,6 +61,16 @@ def create_mesh(mesh_shape: Optional[Tuple[int, ...]] = None,
     if size != n:
         raise ValueError(f"mesh shape {mesh_shape} holds {size} devices; "
                          f"the job has {n} processes")
+    return mesh_shape, axis_names
+
+
+def create_mesh(mesh_shape: Optional[Tuple[int, ...]] = None,
+                axis_names: Sequence[str] = ("data",),
+                device_type: str = "cuda") -> DeviceMesh:
+    """A mesh over every process of the initialized process group; the
+    default puts them all on the first axis (``data``)."""
+    mesh_shape, axis_names = mesh_layout(mesh_shape, axis_names,
+                                         distributed.process_count())
     override = None
     if device_type == "cuda" and dist.get_backend() == "gloo":
         # DeviceMesh gives the groups of a gloo job NCCL for CUDA tensors;

@@ -17,7 +17,8 @@ microbatches, the `--grad-accum` semantics; with one microbatch the step
 is the monolithic step.
 
 SSD300's stages are views over the monolith's own submodules, not copies
-(`SSD300TrunkSliceStage`, `SSD300HeadStage`), under the monolith's
+(`SSD300TrunkSliceStage`, `SSD300HeadStage`; the two-stage split's
+`SSD300TrunkStage`, `build_ssd300_pipeline`), under the monolith's
 parameter names.  So the optimizer, the EMA and the checkpoints go on
 seeing one monolithic model, `freeze_stages` detaches at the same
 boundaries, and a conv that ``ModelConfig.dw_pallas_convs`` routes through
@@ -147,6 +148,15 @@ def split_ssd300_params_n(state_dict: Dict[str, Any], num_stages: int
     return stages
 
 
+def split_ssd300_params(state_dict: Dict[str, Any]
+                        ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """``(trunk, head)``: the two-stage partition of a monolithic SSD300
+    ``state_dict`` (every ``trunk.*`` name, then every other name);
+    `split_ssd300_params_n` with 2 stages."""
+    trunk, head = split_ssd300_params_n(state_dict, 2)
+    return trunk, head
+
+
 def merge_ssd300_stage_trees(stage_dicts: Sequence[Dict[str, Any]]
                              ) -> Dict[str, Any]:
     """Inverse of `split_ssd300_params_n`: one monolithic dict."""
@@ -195,6 +205,15 @@ class SSD300TrunkSliceStage(nn.Module):
         return (conv4_3, x) if self.last == 5 else x
 
 
+class SSD300TrunkStage(SSD300TrunkSliceStage):
+    """Stage 0 of the two-stage split: the input adapter and the whole VGG
+    trunk of ``model``, its own modules.  Carry in, the images; out,
+    ``(conv4_3, x)``."""
+
+    def __init__(self, model: SSD300):
+        super().__init__(model, 1, 5)
+
+
 class SSD300HeadStage(nn.Module):
     """Pipeline stage after the trunk: L2Norm, extra pyramid and heads
     (`models/ssd.py:ssd300_post_trunk`) over ``model``'s own non-trunk
@@ -224,6 +243,24 @@ def ssd300_stages(model: SSD300, num_stages: int) -> List[nn.Module]:
     return [SSD300TrunkSliceStage(model, a, b)
             for a, b in SSD300_STAGE_CUTS[num_stages]] + [
                 SSD300HeadStage(model)]
+
+
+def build_ssd300_pipeline(model: SSD300,
+                          devices: Optional[Sequence[DeviceLike]] = None,
+                          microbatches: int = 1) -> "PipelineRunner":
+    """Two-stage GPipe runner over ``model`` (`SSD300TrunkStage`,
+    `SSD300HeadStage`), whose parameters it moves to their stage devices.
+    ``devices=None`` takes the first two CUDA cards and raises when there
+    are fewer; the CPU is only ever an explicit ``["cpu", "cpu"]``."""
+    if devices is None:
+        n = torch.cuda.device_count()
+        if n < 2:
+            raise RuntimeError(
+                f"a two-stage pipeline needs 2 CUDA devices; {n} available "
+                "(pass devices explicitly, e.g. ['cpu', 'cpu'])")
+        devices = ["cuda:0", "cuda:1"]
+    return PipelineRunner([SSD300TrunkStage(model), SSD300HeadStage(model)],
+                          devices, microbatches=microbatches)
 
 
 def build_pipeline_for(model: nn.Module, num_stages: int,
