@@ -78,6 +78,14 @@ each legacy box op (`mixed_class_nms`, `decode_tanh`, the (y, x, y, x)
 shuffles, `pairwise_iou_rescaled`) on the card against the CPU,
 `create_global_mesh` with no process group, and the two-stage
 `build_ssd300_pipeline` bit-equal to the monolithic f32 forward.
+Phase "quality" follows it: the three learnability recipes of
+`tests/test_torch_learnability.py` on the card with JAX's thresholds (K1
+counted in each hard-NMS measurement, K3 in each int8 one, the QAT steps
+on the card), then SSD300 trained through `cli train` on a 1200 + 200
+image colour-coded VOC at 400x300 (`benchmarks/quality_ab.py`'s recipe)
+and the val mAP of seven inference variants (f32 exact, bf16, int8 with
+heads f32 and chained, int8 with heads quantized, flip TTA, Soft-NMS,
+int8 after `train --qat`), each within its margin of the f32 base.
 Then one JSON line with each kernel's
 numbers, the card's name and power limit as nvidia-smi gives them, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -105,6 +113,11 @@ from pathlib import Path
 import torch
 
 SEED = 0
+# The VOC fixture of the runs after the trainer slice (the ResNet-34
+# trainer, `cli train` under the one-rank group, the SP epoch): half the
+# trainer slice's (448, 192), which keeps the script inside its time as
+# phase "quality" joins it.
+CUT_FIXTURE = (224, 96)
 SERVE_BATCHES = (1, 8, 256)     # detect_batch request sizes in the slice
 # Images of the largest request whose f32 loc/conf are also computed on
 # the CPU.
@@ -1031,26 +1044,37 @@ def host_cpus() -> str:
 
 
 def write_fixture(root: str, cache_prefix: str, num_2007: int,
-                  num_2012: int, image_size=(500, 375)) -> tuple:
+                  num_2012: int, image_size=(500, 375), max_objects: int = 8,
+                  num_classes: int = 20, seed: int = SEED,
+                  difficult_fraction: float = 0.1, split: bool = True
+                  ) -> tuple:
     """A synthetic VOCdevkit (XML and ImageSets as `generate_voc` writes
-    them, up to 8 objects, class-colour coded) whose pixels go straight into
-    two packed caches instead of JPEG files: ``cache_prefix`` over the
-    train split's paths in order and ``cache_prefix.val`` over the val
-    split's, the split the CLI takes.  No PIL, no decode.  Returns (train
-    records, val records)."""
+    them, up to ``max_objects`` objects of the first ``num_classes``
+    classes, class-colour coded) whose pixels go straight into packed
+    caches instead of JPEG files: ``cache_prefix`` over the train split's
+    paths in order and ``cache_prefix.val`` over the val split's, the split
+    the CLI takes.  No PIL, no decode.  Returns (train records, val
+    records).  ``split=False``: one cache at ``cache_prefix`` over every
+    record in `voc.load_records` order, returned as (records, [])."""
     from objectdetection_ssd_torch.config import DataConfig
     from objectdetection_ssd_torch.data import cache, synthetic, voc
     pixels = {}
     synthetic.generate_voc(root, num_2007=num_2007, num_2012=num_2012,
-                           image_size=image_size, max_objects=8, seed=SEED,
-                           class_color_coding=True,
+                           image_size=image_size, max_objects=max_objects,
+                           seed=seed, difficult_fraction=difficult_fraction,
+                           num_classes=num_classes, class_color_coding=True,
                            image_sink=pixels.__setitem__)
     records = voc.load_records(root, train=True)
-    data = DataConfig()
-    train_ids, val_ids = voc.train_val_split(len(records), data.val_fraction,
-                                             data.split_seed)
-    splits = ([records[i] for i in train_ids], [records[i] for i in val_ids])
-    for recs, prefix in zip(splits, (cache_prefix, cache_prefix + ".val")):
+    if split:
+        data = DataConfig()
+        train_ids, val_ids = voc.train_val_split(
+            len(records), data.val_fraction, data.split_seed)
+        splits = ([records[i] for i in train_ids],
+                  [records[i] for i in val_ids])
+        prefixes = (cache_prefix, cache_prefix + ".val")
+    else:
+        splits, prefixes = (records, []), (cache_prefix,)
+    for recs, prefix in zip(splits, prefixes):
         paths = [r.image_path for r in recs]
         cache.write(paths, prefix, lambda paths=paths: (pixels[p]
                                                         for p in paths))
@@ -3073,8 +3097,6 @@ TP_SP_WAYS = 2
 TP_SP_SERVE_BATCH = 8
 TP_SP_INT8_BATCH = 2
 TP_SP_TIMING_STEPS = 3
-# The trainer-slice fixture for the SP epoch (the trainer slice's sizes).
-TP_SP_FIXTURE = (448, 192)
 # The f32 step under a partition against the single-process step on the
 # card (cuDNN deterministic, TF32 off): the loss to the train gate, the
 # gradients to 1e-5 of their largest, as on the CPU (tests/test_torch_tp.py,
@@ -3454,7 +3476,7 @@ def phase_tp_sp_leg(qat_floor: dict) -> dict:
     and int8 serving through `Detector(mesh=)` (K1 and K3 counted, every
     K3 call bit-equal to the single-process call's slice), the ResNet-34
     train-mode step under SP, then one `Trainer.fit` epoch and one
-    `evaluate_records` under SP on the trainer slice's fixture, whose
+    `evaluate_records` under SP on half the trainer slice's fixture, whose
     checkpoint reloads at world size 1 to the ranks' parameters.  Held
     against the single-process runs on the card."""
     import tempfile
@@ -3548,7 +3570,7 @@ def phase_tp_sp_leg(qat_floor: dict) -> dict:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tpsp_") as tmp:
         inp["records"] = write_fixture(f"{tmp}/VOCdevkit", f"{tmp}/cache",
-                                       *TP_SP_FIXTURE)
+                                       *CUT_FIXTURE)
         torch.save(inp, f"{tmp}/inputs.pt")
         torch.save(single_calls, f"{tmp}/int8_calls.pt")
         t0 = time.perf_counter()
@@ -4399,6 +4421,374 @@ def phase_api(device, batch: int = TRAIN_BATCH) -> dict:
     return out
 
 
+# ------------------------------------------------------------- quality
+
+# Leg (b), `benchmarks/quality_ab.py`'s recipe through the port's CLI: a
+# 1200 + 200 image class-colour-coded VOC at 400x300 with up to 4 objects,
+# SSD300 trained in bf16 at batch 64, lr 5e-4, 300 warmup steps, no
+# decay, on the Loader's 8 workers; then 5 QAT epochs at lr 1e-4 on a
+# copy of the checkpoint directory.
+QUALITY_FIXTURE = (1200, 200)
+QUALITY_IMAGE_SIZE = (400, 300)
+QUALITY_MAX_OBJECTS = 4
+QUALITY_BATCH = 64
+QUALITY_WORKERS = 8
+# 30 epochs fit ~180 s on the H100 (the card's mAP ladder, every 5 epochs
+# of 50: 0.00, 0.08, 0.25, 0.31, 0.59, 0.59, 0.63, 0.66, 0.68, 0.67).
+QUALITY_EPOCHS = 30
+QUALITY_QAT_EPOCHS = 5
+QUALITY_MAP_EVERY = 10
+# The gates, fixed before the first run: the base mAP and its gain over
+# the untrained weights, and each variant's margin below the base.
+QUALITY_BASE_MAP = 0.4
+QUALITY_BASE_GAIN = 0.3
+QUALITY_MARGINS = {"int8": 0.02, "int8 heads quantized": 0.03,
+                   "tta flip": 0.02, "soft-nms gaussian": 0.02}
+QUALITY_QAT_MARGIN = 0.005
+
+
+def learnability_module():
+    """`tests/test_torch_learnability.py`, whose recipes and gates leg (a)
+    runs (it imports no JAX at its top)."""
+    import importlib.util
+    path = (Path(__file__).resolve().parent / "tests"
+            / "test_torch_learnability.py")
+    spec = importlib.util.spec_from_file_location("test_torch_learnability",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_quality_toy(device) -> dict:
+    """Leg (a): the three learnability recipes of
+    `tests/test_torch_learnability.py` on ``device`` with their gates, the
+    fixtures written into packed caches.  K1 and K3 are counted around
+    every mAP measurement: K1 launches in each hard-NMS one and not in
+    Soft-NMS, K3 in each int8 one and in no other; the QAT steps are
+    counted through the fake-quant path on the card."""
+    mod = learnability_module()
+    fixture = {k: v for k, v in mod.FIXTURE.items()
+               if k != "class_color_coding"}
+    out = {}
+    # The toys train under PyTorch's default conv numerics (cuDNN TF32,
+    # which this script turns off elsewhere for its bit-level checks), as
+    # leg (b)'s QAT fine-tune does, and with cuDNN's deterministic
+    # algorithms, so that a recipe gives the same mAPs in every run, as on
+    # the CPU.  Each gate is one trajectory's: two card runs with the
+    # default algorithms put the variants recipe's int8 at +0.0016 and
+    # -0.0249 of its base, and TF32 off with deterministic algorithms its
+    # TTA at -0.0155 (JAX's gate: -0.005; `PERF.md`, PR 16).
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for key, (recipe, failures) in mod.RECIPES.items():
+            out[key] = _quality_toy_recipe(device, mod, key, recipe,
+                                           failures, fixture)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.allow_tf32) = flags
+    return out
+
+
+def _quality_toy_recipe(device, mod, key: str, recipe, failures,
+                        fixture: dict) -> dict:
+    """One recipe of leg (a) on a `write_fixture` cache, with K1 and K3
+    counted around each mAP measurement and the QAT steps counted."""
+    import os
+    import tempfile
+
+    from objectdetection_ssd_torch.infer import nms_cuda
+    from objectdetection_ssd_torch.ops import int8_conv as k3
+
+    cuda = device.type == "cuda"
+    counts = {}
+
+    def measure(name, *args, **kwargs):
+        nms_cuda.launches = 0
+        k3.launches = 0
+        value = mod.map_variant(name, *args, **kwargs)
+        if cuda:
+            torch.cuda.synchronize()
+        counts[name] = (nms_cuda.launches, k3.launches)
+        return value
+
+    qat_steps = []
+    train_step = mod.loop_lib.train_step
+
+    def counted_step(state, batch, priors, *args, quant_ste=None, **kw):
+        if quant_ste is not None:
+            qat_steps.append(next(state.model.parameters()).device.type)
+        return train_step(state, batch, priors, *args, quant_ste=quant_ste,
+                          **kw)
+
+    mod.loop_lib.train_step = counted_step
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_toy_") as tmp:
+            prefix = os.path.join(tmp, "cache")
+            records, _ = write_fixture(
+                os.path.join(tmp, "VOCdevkit"), prefix, seed=mod.SEEDS[key],
+                split=False, **fixture)
+            result = recipe(records, device, cache_path=prefix,
+                            measure=measure)
+    finally:
+        mod.loop_lib.train_step = train_step
+    result["seconds"] = time.perf_counter() - t0
+    result["launches"] = counts
+    bad = failures(result)
+    for name, (k1, k3n) in counts.items():
+        soft = name == "soft_nms"
+        int8 = name.startswith("int8")
+        if cuda and ((k1 > 0) == soft or (k3n > 0) != int8):
+            bad.append(f"{name}: K1 {k1}, K3 {k3n} launches")
+    if key == "qat":
+        want = mod.QAT_EPOCHS * len(records) // mod.DATA.batch_size
+        result["qat_steps"] = len(qat_steps)
+        if len(qat_steps) != want or set(qat_steps) != {device.type}:
+            bad.append(f"QAT steps {len(qat_steps)} on {set(qat_steps)}, "
+                       f"want {want} on {device.type}")
+    if bad:
+        fail(f"quality toy {key}: {bad} ({result})")
+    return result
+
+
+def phase_quality_ssd300(device, fixture=QUALITY_FIXTURE,
+                         image_size=QUALITY_IMAGE_SIZE,
+                         batch: int = QUALITY_BATCH,
+                         workers: int = QUALITY_WORKERS,
+                         epochs: int = QUALITY_EPOCHS,
+                         qat_epochs: int = QUALITY_QAT_EPOCHS,
+                         map_every: int = QUALITY_MAP_EVERY) -> dict:
+    """Leg (b): SSD300 at full width trained by `cli train` in-process on
+    a `write_fixture` VOC (``benchmarks/quality_ab.py``'s recipe, image
+    reads from the packed caches), then the val split through
+    `evaluate_records` with the exact postprocess on one Detector per
+    variant: f32 (the base), bf16, int8 PTQ with the heads f32 and the
+    requant chain (`cli`'s `--int8` default), int8 with the heads
+    quantized, flip TTA, Soft-NMS Gaussian, and int8 served after
+    ``train --qat`` on a copy of the checkpoint directory.  K1 and K3 are
+    counted around each evaluation.  The gates are checked by the
+    caller."""
+    import io
+    import os
+    import tempfile
+
+    from objectdetection_ssd_torch import cli
+    from objectdetection_ssd_torch.config import (Config, DataConfig,
+                                                  ModelConfig, QuantConfig,
+                                                  TrainConfig)
+    from objectdetection_ssd_torch.data import cache
+    from objectdetection_ssd_torch.data import pipeline as data_pipeline
+    from objectdetection_ssd_torch.eval.evaluate import (
+        evaluate_records, exact_eval_postprocess)
+    from objectdetection_ssd_torch.infer import nms_cuda
+    from objectdetection_ssd_torch.infer import quant as quant_lib
+    from objectdetection_ssd_torch.infer.detector import (Detector,
+                                                         checkpoint_weights)
+    from objectdetection_ssd_torch.ops import int8_conv as k3
+    from objectdetection_ssd_torch.train.checkpoint import CheckpointManager
+
+    cuda = device.type == "cuda"
+    out = {"epochs": epochs, "qat_epochs": qat_epochs}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_quality_") as tmp:
+        root = os.path.join(tmp, "VOCdevkit")
+        prefix = os.path.join(tmp, "cache")
+        ckpt = os.path.join(tmp, "ckpt")
+        ckpt_qat = os.path.join(tmp, "ckpt_qat")
+        t0 = time.perf_counter()
+        train_recs, val_recs = write_fixture(
+            root, prefix, *fixture, image_size=image_size,
+            max_objects=QUALITY_MAX_OBJECTS)
+        out["fixture_s"] = time.perf_counter() - t0
+        out["train_images"], out["val_images"] = (len(train_recs),
+                                                  len(val_recs))
+        index = {r.image_path: (prefix, i) for i, r in enumerate(train_recs)}
+        index.update({r.image_path: (prefix + ".val", i)
+                      for i, r in enumerate(val_recs)})
+        common = ["--voc-root", root, "--batch-size", str(batch),
+                  "--num-workers", str(workers), "--image-cache", prefix,
+                  "--bf16"] + ([] if cuda else ["--device", "cpu"])
+
+        def run(argv) -> str:
+            text, err = io.StringIO(), io.StringIO()
+            try:
+                with contextlib.redirect_stdout(text), \
+                        contextlib.redirect_stderr(err):
+                    rc = cli.main(argv)
+            except SystemExit as e:
+                raise SystemExit(f"cli {argv[0]}: {e} "
+                                 f"{err.getvalue()[-300:]}") from e
+            if rc != 0:
+                fail(f"cli {argv[0]} rc {rc}: {text.getvalue()[-300:]}")
+            return text.getvalue() + err.getvalue()
+
+        cfg = Config(data=DataConfig(voc_root=root, batch_size=batch,
+                                     num_workers=0),
+                     train=TrainConfig(checkpoint_dir=ckpt))
+        pp = exact_eval_postprocess(cfg.postprocess)
+
+        def evaluate(name, weights, config=cfg, postprocess=pp,
+                     quant=None) -> float:
+            det = Detector(config, weights, postprocess_config=postprocess,
+                           quant=quant, device=device)
+            nms_cuda.launches = 0
+            k3.launches = 0
+            t = time.perf_counter()
+            _, mean_ap = evaluate_records(config, None, val_recs,
+                                          detector=det,
+                                          image_cache=prefix + ".val")
+            if cuda:
+                torch.cuda.synchronize()
+            out.setdefault("variants", {})[name] = {
+                "map": mean_ap, "images": len(val_recs),
+                "seconds": time.perf_counter() - t,
+                "k1": nms_cuda.launches, "k3": k3.launches,
+                "int8_convs": (None if quant is None
+                               else quant_lib.count_quantized(quant))}
+            return mean_ap
+
+        def int8_tree(config, weights, heads=False):
+            qcfg = config.replace(quant=QuantConfig(
+                int8=True, quantize_heads=heads))
+            return cli._build_quant(qcfg, weights, device,
+                                    records=train_recs)
+
+        load_image = data_pipeline.load_image
+        data_pipeline.load_image = lambda p: cache.get_image(*index[p])
+        try:
+            untrained, _ = checkpoint_weights(
+                cfg, os.path.join(tmp, "empty"), allow_random_init=True)
+            out["untrained_map"] = evaluate("untrained", untrained)
+            del out["variants"]["untrained"]
+            t0 = time.perf_counter()
+            log = run(["train", *common, "--checkpoint-dir", ckpt,
+                       "--epochs", str(epochs), "--lr", "5e-4",
+                       "--warmup-steps", "300", "--no-lr-decay",
+                       "--eval-map-every", str(map_every)])
+            out["train_s"] = time.perf_counter() - t0
+            out["ladder"] = {int(e): float(m) for e, m in re.findall(
+                r"epoch (\d+): val mAP = ([0-9.]+)", log)}
+            _, meta, epoch = CheckpointManager(ckpt).load()
+            out["history"] = meta.get("history")
+            out["train_epoch"] = epoch
+            out["steps_per_epoch"] = len(train_recs) // batch
+            weights, _ = checkpoint_weights(cfg)
+            base = evaluate("f32", weights)
+            evaluate("bf16", weights, config=cfg.replace(
+                model=ModelConfig(compute_dtype="bfloat16")))
+            qtree = int8_tree(cfg, weights)
+            evaluate("int8", weights, quant=qtree)
+            evaluate("int8 heads quantized", weights,
+                     quant=int8_tree(cfg, weights, heads=True))
+            evaluate("tta flip", weights,
+                     postprocess=dataclasses.replace(pp, tta_flip=True))
+            evaluate("soft-nms gaussian", weights,
+                     postprocess=dataclasses.replace(
+                         pp, nms_method="soft_gaussian"))
+            shutil.copytree(ckpt, ckpt_qat)
+            t0 = time.perf_counter()
+            # The fake-quant convs run in f32: under PyTorch's default
+            # cuDNN TF32 here, which this script turns off elsewhere for
+            # its bit-level checks.
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                run(["train", *common, "--checkpoint-dir", ckpt_qat,
+                     "--epochs", str(epochs + qat_epochs), "--resume",
+                     "--qat", "--lr", "1e-4", "--no-lr-decay"])
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+            out["qat_s"] = time.perf_counter() - t0
+            cfg_qat = cfg.replace(train=TrainConfig(checkpoint_dir=ckpt_qat))
+            weights_q, _ = checkpoint_weights(cfg_qat)
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                qtree_q = int8_tree(cfg_qat, weights_q)
+            if "using QAT-trained scales" not in err.getvalue():
+                fail(f"int8 after QAT did not serve the QAT scales: "
+                     f"{err.getvalue()[-300:]}")
+            evaluate("int8 after qat", weights_q, config=cfg_qat,
+                     quant=qtree_q)
+        finally:
+            data_pipeline.load_image = load_image
+    out["base_map"] = base
+    return out
+
+
+def report_quality(qt: dict, qs: dict, smi: str) -> tuple:
+    """Print phase "quality"'s lines: each toy recipe's mAPs, final loss
+    and launches, leg (b)'s training and one line per variant.  Returns
+    the K1 and K3 launches of the phase's measurements."""
+    k1 = k3 = 0
+    for key, r in qt.items():
+        counts = ", ".join(f"{n} K1 {a} K3 {b}"
+                           for n, (a, b) in r["launches"].items())
+        maps = ", ".join(f"{k} {v:.4f}" for k, v in r.items()
+                         if isinstance(v, float) and k not in ("seconds",
+                                                               "loss"))
+        print(f"quality toy {key} ({smi}): {maps}; final loss "
+              f"{r['loss']:.4f}; launches: {counts}"
+              + (f"; {r['qat_steps']} QAT steps on the card"
+                 if "qat_steps" in r else "")
+              + f"; {r['seconds']:.1f} s")
+        k1 += sum(a for a, _ in r["launches"].values())
+        k3 += sum(b for _, b in r["launches"].values())
+    base = qs["base_map"]
+    rate = qs["epochs"] * qs["steps_per_epoch"] * QUALITY_BATCH / qs["train_s"]
+    print(f"quality ssd300: fixture {qs['train_images']} train + "
+          f"{qs['val_images']} val images at {QUALITY_IMAGE_SIZE[0]}x"
+          f"{QUALITY_IMAGE_SIZE[1]} in packed caches "
+          f"({qs['fixture_s']:.2f} s); cli train --bf16 batch "
+          f"{QUALITY_BATCH}, lr 5e-4, 300 warmup steps, no decay, "
+          f"{QUALITY_WORKERS} workers ({smi}): {qs['epochs']} epochs of "
+          f"{qs['steps_per_epoch']} steps in {qs['train_s']:.1f} s "
+          f"({rate:.1f} images/s with the per-epoch loss eval, checkpoint "
+          f"and mAP evals); train loss by epoch "
+          f"{[round(x, 3) for x in qs['history']['train']]}; val mAP ladder "
+          f"{qs['ladder']}; untrained mAP {qs['untrained_map']:.4f}; "
+          f"train --qat {qs['qat_epochs']} epochs in {qs['qat_s']:.1f} s")
+    for name, r in qs["variants"].items():
+        print(f"quality ssd300 {name}: mAP {r['map']:.4f} (delta "
+              f"{r['map'] - base:+.4f} vs f32), {r['images']} images, "
+              f"{r['seconds']:.2f} s, K1 {r['k1']}, K3 {r['k3']} ({smi})")
+        k1 += r["k1"]
+        k3 += r["k3"]
+    return k1, k3
+
+
+def quality_failures(q: dict, batch: int = QUALITY_BATCH) -> list:
+    """Leg (b)'s gates, and its launch counts: K1 once per batch of every
+    hard-NMS evaluation and never under Soft-NMS; K3 once per quantized
+    conv per batch of every int8 evaluation and never elsewhere."""
+    v = q["variants"]
+    base = q["base_map"]
+    bad = []
+    if not base >= QUALITY_BASE_MAP:
+        bad.append(f"base mAP {base:.4f} < {QUALITY_BASE_MAP}")
+    if not base >= q["untrained_map"] + QUALITY_BASE_GAIN:
+        bad.append(f"base mAP {base:.4f} < untrained "
+                   f"{q['untrained_map']:.4f} + {QUALITY_BASE_GAIN}")
+    for name, margin in QUALITY_MARGINS.items():
+        if not v[name]["map"] >= base - margin:
+            bad.append(f"{name} mAP {v[name]['map']:.4f} < base "
+                       f"{base:.4f} - {margin}")
+    if not v["int8 after qat"]["map"] >= v["int8"]["map"] - \
+            QUALITY_QAT_MARGIN:
+        bad.append(f"int8 after QAT {v['int8 after qat']['map']:.4f} < "
+                   f"PTQ {v['int8']['map']:.4f} - {QUALITY_QAT_MARGIN}")
+    for name, r in v.items():
+        batches = -(-r["images"] // batch)
+        k1 = 0 if name == "soft-nms gaussian" else batches
+        k3n = (r["int8_convs"] or 0) * batches
+        if (r["k1"], r["k3"]) != (k1, k3n):
+            bad.append(f"{name}: K1 {r['k1']} (want {k1}), K3 {r['k3']} "
+                       f"(want {k3n})")
+    return bad
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k1-baseline", type=Path, action="append",
@@ -4654,7 +5044,7 @@ def main(argv=None) -> int:
           f"running statistics alone {rt['stats_rel']:.3e}; dropout 0.4: "
           f"losses {rt['dropout_losses']} (runs a, b seed {SEED}; c seed "
           f"{SEED + 1}), masks repeat from (seed, step)")
-    rtr = phase_resnet_trainer(device)
+    rtr = phase_resnet_trainer(device, *CUT_FIXTURE)
     phases = "; ".join(
         f"{label}: train phase {s['images_per_s']:.1f} images/s "
         f"({s['steps']} steps, {s['seconds']:.3f} s), input wait "
@@ -4857,6 +5247,21 @@ def main(argv=None) -> int:
           f"{ap['default_devices']}")
     print(f"api phase took {ap['ms']:.1f} ms")
 
+    # Quality: the learnability recipes on the card (leg a), then SSD300
+    # trained through the CLI and every inference variant's mAP (leg b).
+    t_phase = time.perf_counter()
+    qt = phase_quality_toy(device)
+    t_toy = time.perf_counter() - t_phase
+    qs = phase_quality_ssd300(device)
+    k1, k3 = report_quality(qt, qs, smi)
+    k1_launches += k1
+    k3_launches += k3
+    bad = quality_failures(qs)
+    if bad:
+        fail(f"quality ssd300: {bad}")
+    print(f"quality: every gate met; leg (a) {t_toy:.1f} s, the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
     # Data parallelism: the two-rank gloo leg, then the wrappers, the CLI
     # and the multi-rank eval under a one-rank NCCL group joined through
     # `distributed.initialize`; the ResNet-34 host-time split; the doctor.
@@ -4898,7 +5303,7 @@ def main(argv=None) -> int:
           f"{pt['ddp']['step_ms'] - pt['unwrapped']['step_ms']:+.3f} ms/step,"
           f" FSDP2 {pt['fsdp']['step_ms'] - pt['unwrapped']['step_ms']:+.3f}"
           f" ms/step; K2 launches per wrapped step 4")
-    pc = phase_parallel_cli(dev)
+    pc = phase_parallel_cli(dev, *CUT_FIXTURE)
     ev = pc["eval"]
     print(f"parallel: cli train (distributed.initialize, DDP, world size 1)"
           f" bf16 batch {TIMING_TRAIN_BATCH}, 1 epoch, --eval-map-every 1 "

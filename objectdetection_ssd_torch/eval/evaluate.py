@@ -74,10 +74,10 @@ def _bounded_map(pool, fn, items, window: int):
         yield result
 
 
-def local_detection_rows(dets: Detections) -> Detections:
+def local_detection_rows(tree: Detections) -> Detections:
     """This process's rows of a batch's detections, as numpy: one host
     pull per tensor, not four per row."""
-    return Detections(*(t.cpu().numpy() for t in dets))
+    return Detections(*(t.cpu().numpy() for t in tree))
 
 
 def _gather_rows(t: torch.Tensor, stride: int = 1) -> torch.Tensor:
@@ -179,10 +179,10 @@ def evaluate_records(config: Config,
                      detector: Optional[Detector] = None,
                      iou_sweep: bool = False,
                      pr_curves_path: Optional[str] = None,
+                     mesh=None, quant: Optional[Mapping] = None,
                      image_cache: Optional[str] = None,
-                     device: DeviceLike = None,
-                     quant: Optional[Mapping] = None,
-                     local_only: bool = False, mesh=None):
+                     local_only: bool = False,
+                     device: DeviceLike = None):
     """Returns (per-class AP, mAP) over ``records``.
 
     Ground truth as the reference protocol has it: difficult objects are

@@ -34,7 +34,7 @@ from objectdetection_ssd_torch.device import DeviceLike, resolve_device
 from objectdetection_ssd_torch.infer.postprocess import (Detections,
                                                          postprocess,
                                                          scale_detections)
-from objectdetection_ssd_torch.models.ssd import build_model
+from objectdetection_ssd_torch.models.ssd import build_model, normalize_uint8
 from objectdetection_ssd_torch.ops import boxes as box_ops
 from objectdetection_ssd_torch.ops import priors as priors_lib
 from objectdetection_ssd_torch.parallel.data_parallel import (
@@ -125,9 +125,9 @@ def checkpoint_weights(config: Config, checkpoint_dir: Optional[str] = None,
 
 
 class Detector:
-    """SSD forward (the registry model of ``config.model``) + postprocess
-    on one device, partitioned over a mesh's ``model`` or ``spatial`` axis
-    when given one."""
+    """SSD forward (the registry model of ``config.model``, or the
+    caller's) + postprocess on one device, partitioned over a mesh's
+    ``model`` or ``spatial`` axis when given one."""
 
     @classmethod
     def from_checkpoint(cls, config: Config,
@@ -144,28 +144,41 @@ class Detector:
 
     def __init__(self, config: Config, state_dict: Mapping[str, torch.Tensor],
                  postprocess_config: Optional[PostprocessConfig] = None,
-                 device: DeviceLike = None, priors: Optional[np.ndarray] = None,
-                 quant: Optional[Mapping] = None, mesh=None):
-        """``quant``: an int8 scale tree (`infer.quant.act_scales`, chained
+                 mesh=None, quant: Optional[Mapping] = None,
+                 model: Optional[torch.nn.Module] = None,
+                 priors: Optional[np.ndarray] = None,
+                 device: DeviceLike = None):
+        """``mesh``: a `parallel.mesh.create_mesh` mesh over the joined
+        process group (``device`` is then this rank's card).  With a
+        ``model`` axis the weights are sharded over it after loading (each
+        rank keeps its channels); with a ``spatial`` axis each rank
+        computes its rows.  Every rank of the group calls `detect_batch`
+        with the same images (its data shard's rows).
+
+        ``quant``: an int8 scale tree (`infer.quant.act_scales`, chained
         or not): the convs it names run int8 on K3, the others float.  The
         model then holds its weights in f32, as the JAX package quantizes
         them from its f32 parameters, and casts the float convs' weights to
         the compute dtype at use.
 
-        ``mesh``: a `parallel.mesh.create_mesh` mesh over the joined
-        process group (``device`` is then this rank's card).  With a
-        ``model`` axis the weights are sharded over it after loading (each
-        rank keeps its channels); with a ``spatial`` axis each rank
-        computes its rows.  Every rank of the group calls `detect_batch`
-        with the same images (its data shard's rows)."""
+        ``model`` / ``priors``: serve this module and prior set in place
+        of the registry's (tests, custom architectures), as the Trainer
+        takes them.  The module maps ImageNet-normalized NHWC float images
+        to ``(loc, conf)``; uint8 batches are normalized before it (the
+        registry models normalize them themselves).  It is moved to
+        ``device``, put in eval mode and given ``state_dict``; ``quant``
+        and flip TTA apply to it unchanged."""
         from objectdetection_ssd_torch.infer.quant import attach_scales
         self.device = resolve_device(device)
         self.config = config
         self.pp_config = postprocess_config or config.postprocess
         self.quant = quant
         self.mesh = mesh
-        self.model = build_model(config.model, device=self.device,
-                                 train=quant is not None).eval()
+        self.custom_model = model is not None
+        if model is None:
+            model = build_model(config.model, device=self.device,
+                                train=quant is not None)
+        self.model = model.to(self.device).eval()
         self.model.load_state_dict(state_dict, strict=True)
         if mesh is not None:
             partition_model(self.model, mesh)
@@ -192,20 +205,22 @@ class Detector:
             {k: shard_like(v, live[k]) if k in live else v
              for k, v in state_dict.items()}, strict=True)
 
+    def _images(self, images) -> torch.Tensor:
+        images = torch.as_tensor(images).to(self.device, non_blocking=True)
+        return normalize_uint8(images) if self.custom_model else images
+
     @torch.inference_mode()
     def forward(self, images) -> tuple:
         """(B, S, S, 3) uint8 or normalized float NHWC -> (loc, conf)."""
-        images = torch.as_tensor(images).to(self.device, non_blocking=True)
-        return self.model(images)
+        return self.model(self._images(images))
 
     @torch.inference_mode()
     def detect_batch(self, images) -> Detections:
         """(B, S, S, 3) uint8 or normalized float NHWC -> Detections
         (normalized boxes), on this detector's device; with flip TTA when
         the postprocess config asks for it."""
-        images = torch.as_tensor(images).to(self.device, non_blocking=True)
         loc, conf, priors = forward_for_postprocess(
-            self.model, images, self.priors, self.pp_config,
+            self.model, self._images(images), self.priors, self.pp_config,
             self.mirror_perm)
         return postprocess(loc, conf, priors, self.pp_config)
 

@@ -134,14 +134,18 @@ def row_bounds(height: int, ways: int, index: int) -> Tuple[int, int]:
     return index * height // ways, (index + 1) * height // ways
 
 
-def local_batch_size(global_batch_size: int, mesh: DeviceMesh) -> int:
+def local_batch_size(global_batch_size: int, mesh: DeviceMesh,
+                     axis: Optional[str] = None) -> int:
+    """The rows of ``global_batch_size`` per shard of the mesh's batch
+    axes, or of ``axis`` alone when it is given."""
+    axes = (axis,) if axis is not None else batch_axes(mesh)
     n = 1
-    for a in batch_axes(mesh):
+    for a in axes:
         n *= axis_size(mesh, a)
     if global_batch_size % n:
         raise ValueError(
             f"global batch {global_batch_size} not divisible by "
-            f"batch mesh axes {batch_axes(mesh)} (total {n} ways)")
+            f"batch mesh axes {axes} (total {n} ways)")
     return global_batch_size // n
 
 

@@ -11,8 +11,12 @@ leaves a half-written epoch behind; the oldest epochs past
 ``max_to_keep`` are then removed.  Saves are synchronous: ``wait`` exists
 for the JAX package's interface and returns at once.
 
-A restore does not reset the learning rate (the reference overrides it on
-resume, `train_function.py:29-30`): the schedule is part of the state.
+A restore takes the schedule's position from the checkpoint (the update
+count, the momentum buffers) and its hyperparameters from the live state,
+as the JAX package's does: there optax's count is state and the learning
+rate, warm-up, decay, momentum and weight decay come from the config the
+run was started with, so a resume with another ``--lr`` (a QAT fine-tune)
+trains at that rate.
 
 Under a mesh every rank calls `save` and `restore`.  A save gathers FSDP2
 and tensor-parallel shards into whole tensors (the single-device format, so
@@ -50,6 +54,11 @@ class CheckpointManager:
         return sorted(int(n) for n in os.listdir(self._dir) if n.isdigit()
                       and os.path.exists(os.path.join(self._dir, n,
                                                       STATE_FILE)))
+
+    def close(self) -> None:
+        """Nothing to release: every save and load opens and closes its
+        own files.  JAX's manager holds an async writer here; safe to call
+        any number of times."""
 
     def latest_epoch(self) -> Optional[int]:
         epochs = self.epochs()
@@ -138,8 +147,20 @@ class CheckpointManager:
                 if isinstance(v, torch.Tensor) and v.dim() else v
                 for k, v in entry.items()}
             for i, entry in optimizer["state"].items()}
+        # The hyperparameters are the live config's (JAX builds its optax
+        # chain from the config, and restores only the count and traces).
+        live = [{k: v for k, v in g.items() if k != "params"}
+                for g in state.optimizer.param_groups]
+        base_lrs = list(state.scheduler.base_lrs)
         state.optimizer.load_state_dict(optimizer)
         state.scheduler.load_state_dict(payload["scheduler"])
+        state.scheduler.base_lrs = base_lrs
+        sched = state.scheduler
+        for group, hyper, base, factor in zip(
+                state.optimizer.param_groups, live, base_lrs,
+                sched.lr_lambdas):
+            group.update(hyper, lr=base * factor(sched.last_epoch))
+        sched._last_lr = [g["lr"] for g in state.optimizer.param_groups]
         state.step = int(payload["step"])
         state.mini_step = int(payload["mini_step"])
         acc = payload["acc_grads"]

@@ -106,7 +106,7 @@ def _metrics(state: TrainState, loss: MultiboxLoss
 def train_step(state: TrainState, batch: Mapping[str, object],
                priors: torch.Tensor,
                loss_config: LossConfig = LossConfig(),
-               ema_decay: float = 0.0, seed: int = 0, remat: bool = False,
+               seed: int = 0, remat: bool = False, ema_decay: float = 0.0,
                quant_ste: Optional[Mapping] = None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One SGD step (or micro-step under gradient accumulation); returns

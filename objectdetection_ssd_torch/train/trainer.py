@@ -72,10 +72,10 @@ class Trainer:
                  epoch_callback: Optional[Callable[[int, "Trainer"], None]]
                  = None,
                  model: Optional[nn.Module] = None, priors=None,
-                 device: DeviceLike = None,
                  init_state_dict: Optional[Mapping[str, torch.Tensor]]
                  = None,
                  pp_build: Optional[Callable] = None,
+                 device: DeviceLike = None,
                  pp_devices: Optional[Sequence[DeviceLike]] = None):
         """``model`` / ``priors``: override the registry model and its
         prior set (tests, custom architectures).  ``device`` defaults to
@@ -224,10 +224,11 @@ class Trainer:
                 f"divisible by --pp-dp {dp}")
         return devs[:pp * dp]
 
-    def enable_qat(self, qtree: Mapping) -> None:
+    def enable_qat(self, quant_ste: Mapping) -> None:
         """Train and evaluate from now on through the straight-through
-        fake-quant convs of ``qtree`` (`infer.quant.act_scales`), so that
-        the fine-tuned weights serve int8 with the same scales.  Calibrate
+        fake-quant convs of the scale tree ``quant_ste``
+        (`infer.quant.act_scales`), so that the fine-tuned weights serve
+        int8 with the same scales.  Calibrate
         after any init or resume: the scales must describe the weights
         being fine-tuned (`cli train --qat` keeps that order).  Refused
         under ``--pp``: the stages have no fake-quant path."""
@@ -238,7 +239,7 @@ class Trainer:
                 "have no fake-quant path); QAT-train on the data, FSDP, "
                 "tensor or spatial strategies, then serve the checkpoint "
                 "however you like")
-        self.quant_ste = scales_to(qtree, self.device)
+        self.quant_ste = scales_to(quant_ste, self.device)
 
     def maybe_resume(self) -> bool:
         """Resume from the latest checkpoint if one exists (reference

@@ -135,3 +135,55 @@ def test_detect_images_matches_jax(detectors, tmp_path):
                                    atol=1e-4)
         np.testing.assert_allclose(g["boxes_xyxy"], w["boxes_xyxy"], rtol=0,
                                    atol=1e-4 * max(width, height))
+
+
+class LeftEye(torch.nn.Module):
+    """Parameter-free detector with one anchor: the class-1 logit is
+    positive iff the left half of the image is brighter than the right
+    (JAX `tests/test_end_to_end.py`'s `LeftEye`)."""
+
+    def forward(self, x):
+        half = x.shape[2] // 2
+        left = x[:, :, :half, :].mean(dim=(1, 2, 3))
+        right = x[:, :, half:, :].mean(dim=(1, 2, 3))
+        conf = torch.full((x.shape[0], 1, 21), -20.0)
+        conf[:, 0, 20] = 0.0                 # background (the last channel)
+        conf[:, 0, 1] = 40.0 * (left - right)
+        return torch.zeros((x.shape[0], 1, 4)), conf     # box == prior
+
+
+def test_tta_flip_recovers_mirror_only_detection():
+    """`Detector(model=, priors=)` with flip TTA: a model that fires only
+    when the bright blob is in the left half cannot see a right-side
+    object, unless the mirrored view runs and its box is mapped back — to
+    the mirrored prior (cx 0.25 -> 0.75), as in JAX's test."""
+    import dataclasses
+
+    from objectdetection_ssd_torch.config import ModelConfig
+    prior = np.array([[0.25, 0.5, 0.2, 0.2]], np.float32)    # cx cy w h
+    cfg = Config(model=ModelConfig(image_size=32))
+    pp = dataclasses.replace(cfg.postprocess, use_approx_top_k=False,
+                             anchor_prefilter=0, per_class_top_k=4, top_k=4)
+    img = np.zeros((1, 32, 32, 3), np.float32)
+    img[:, :, 16:, :] = 1.0                                  # bright RIGHT
+
+    det = Detector(cfg, {}, postprocess_config=pp, model=LeftEye(),
+                   priors=prior, device="cpu")
+    assert int(det.detect_batch(img).valid.sum()) == 0
+
+    det_tta = Detector(cfg, {}, postprocess_config=dataclasses.replace(
+        pp, tta_flip=True), model=LeftEye(), priors=prior, device="cpu")
+    assert det_tta.mirror_perm is None          # the union merge
+    out = det_tta.detect_batch(img)
+    assert int(out.valid.sum()) == 1
+    i = int(out.valid[0].float().argmax())
+    assert int(out.classes[0, i]) == 1
+    np.testing.assert_allclose(out.boxes_xyxy[0, i].numpy(),
+                               [0.65, 0.4, 0.85, 0.6], atol=1e-5)
+
+    # Flip invariance: on the mirrored image the direct view fires.
+    out_m = det_tta.detect_batch(np.ascontiguousarray(img[:, :, ::-1, :]))
+    assert int(out_m.valid.sum()) == 1
+    j = int(out_m.valid[0].float().argmax())
+    np.testing.assert_allclose(out_m.boxes_xyxy[0, j].numpy(),
+                               [0.15, 0.4, 0.35, 0.6], atol=1e-5)

@@ -466,3 +466,62 @@ def test_checkpoint_weights_for_serving(tmp_path):
     CheckpointManager(str(tmp_path / "ck")).save(4, state)
     with pytest.raises(ValueError, match="EMA"):
         checkpoint_weights(cfg, str(tmp_path / "ck"), use_ema=True)
+
+
+def test_resume_takes_the_configs_hyperparameters_like_jax(tmp_path):
+    """A resume keeps the update count and the momentum buffers of the
+    checkpoint and takes the learning rate, warm-up, momentum and weight
+    decay of the config it is started with, as JAX's does (optax's count
+    and traces are state, the chain is the config's): ``train --resume
+    --qat --lr 1e-4`` fine-tunes at 1e-4.  Two updates at one config,
+    a checkpoint, two more at another, against optax on the same
+    gradients (1e-6)."""
+    rng = np.random.default_rng(3)
+    w0 = rng.normal(0, 0.5, (5, 3)).astype(np.float32)
+    b0 = rng.normal(0, 0.5, (5,)).astype(np.float32)
+    grads = [(rng.normal(0, 1, (5, 3)).astype(np.float32),
+              rng.normal(0, 1, (5,)).astype(np.float32)) for _ in range(4)]
+    first = dict(lr=0.1, use_lr_schedule=False, warmup_steps=4)
+    second = dict(lr=0.02, use_lr_schedule=False, warmup_steps=6,
+                  momentum=0.5, weight_decay=1e-2)
+
+    tree = {"dense": {"kernel": jnp.asarray(w0.T), "bias": jnp.asarray(b0)}}
+    opt_state = None
+    for i, (gw, gb) in enumerate(grads):
+        tx = jstate.make_optimizer(
+            jconfig.OptimConfig(**(first if i < 2 else second)),
+            steps_per_epoch=1, frozen_prefixes=())
+        opt_state = tx.init(tree) if opt_state is None else opt_state
+        g = {"dense": {"kernel": jnp.asarray(gw.T), "bias": jnp.asarray(gb)}}
+        updates, opt_state = tx.update(g, opt_state, tree)
+        tree = optax.apply_updates(tree, updates)
+
+    def state_for(cfg):
+        model = torch.nn.Linear(3, 5)
+        with torch.no_grad():
+            model.weight.copy_(torch.from_numpy(w0))
+            model.bias.copy_(torch.from_numpy(b0))
+        return tstate.create_train_state(
+            tconfig.ModelConfig(), tconfig.OptimConfig(**cfg), device="cpu",
+            model=model)
+
+    def update(state, gw, gb):
+        state.model.weight.grad = torch.from_numpy(gw)
+        state.model.bias.grad = torch.from_numpy(gb)
+        state.apply_gradients()
+
+    state = state_for(first)
+    for gw, gb in grads[:2]:
+        update(state, gw, gb)
+    ckpt = CheckpointManager(str(tmp_path))
+    ckpt.save(0, state)
+    resumed, _, _ = ckpt.restore(state_for(second))
+    assert resumed.step == 2
+    for gw, gb in grads[2:]:
+        update(resumed, gw, gb)
+    np.testing.assert_allclose(resumed.model.weight.detach().numpy(),
+                               np.asarray(tree["dense"]["kernel"]).T,
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(resumed.model.bias.detach().numpy(),
+                               np.asarray(tree["dense"]["bias"]),
+                               rtol=0, atol=1e-6)
