@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (`objectdetection_ssd_torch`) on one CUDA
 card: builds every hand kernel (K1 greedy NMS, K2 the 3x3 filter
-gradient, K3 the int8 conv), holds each against its plain PyTorch
-version, serves SSD300
+gradient, K3 the int8 conv, K4 the fused bias add and ReLU), holds each
+against its plain PyTorch version, serves SSD300
 requests through `Detector`, takes SSD300 train steps with K2 on the
 routed convs, times both paths, and drives the training entry point
 (Loader, Trainer, checkpoints and resume, `cli eval`, `Detector.
@@ -17,7 +17,15 @@ from_checkpoint`) on a synthetic VOC fixture held in packed caches.
                                                  # the first K3's C entry
 
 Phases, one line each: device, build (each kernel's registers and
-spills; a spill fails), K1 vs plain, K2 vs plain, the serving slice,
+spills; a spill fails), K1 vs plain, K2 vs plain, the bias-relu kernel
+(K4 bit-equal to its plain version at every SSD300 and ResNet-34 shape it
+serves, ragged, unaligned and NaN / inf cases; the Detectors' inference
+forward bit-equal to the grad-enabled one; per shape at batch 256 its
+time against its byte bound, the plain version, the add_ + relu pair it
+replaces, the bias-free cuDNN conv and torch.cudnn_convolution_relu;
+host time per call of the op, the launcher, the layer's entry, the
+checked entry and the pair), the serving
+slice (K4 23 launches per SSD300 request, 4 per ResNet-34 one),
 serving timing (K1 at the serving and the exact-eval shape: device time
 per launch from torch.profiler, host time per call, CUDA-event time,
 valid counts, bounds), the train slice (with the routed conv's dX
@@ -43,10 +51,11 @@ conv, `torch._int_mm` and any `--k3-baseline`; QAT steps card vs CPU and
 binding enforced.  Then the serving artifact (`infer/export.py`): SSD300
 bf16, SSD300 int8 as `cli export --latency-profile` builds it and
 ResNet-34 with flip TTA, each exported on the card, loaded and served
-through `ExportedDetector` (== the live `detect_batch`, K1 once and K3 23
-times per chunk), reloaded, moved to the CPU, and timed against the live
+through `ExportedDetector` (== the live `detect_batch`, K1 once, K3 23
+times and K4 23 (bf16 SSD300) or 8 (ResNet-34 with TTA) times per chunk),
+reloaded, moved to the CPU, and timed against the live
 Detector with and without a CUDA graph; `torch.library.opcheck` of the
-two custom ops; the MicroBatcher over 16 concurrent requests.  Then data
+three custom ops; the MicroBatcher over 16 concurrent requests.  Then data
 parallelism (`parallel/`): a two-rank DDP step over gloo with both ranks
 on the one card against the single-process step; under a one-rank NCCL
 group joined through `distributed.initialize` (NCCL takes one rank per
@@ -317,16 +326,18 @@ def serve_requests(det, images: dict, what: str) -> tuple:
     after), each result well formed, and the kernel path's detections
     equal to the plain-NMS path's on the same loc/conf.  Returns (K1
     launches, valid detections per batch, candidates suppressed, K3
-    launches)."""
+    launches, K4 launches)."""
     from objectdetection_ssd_torch.infer import nms_cuda
     from objectdetection_ssd_torch.infer import postprocess as pp
-    from objectdetection_ssd_torch.ops import int8_conv
+    from objectdetection_ssd_torch.ops import bias_relu, int8_conv
     nms_cuda.launches = 0
     int8_conv.launches = 0
+    bias_relu.launches = 0
     served = {b: det.detect_batch(x) for b, x in images.items()}
     if det.device.type == "cuda":
         torch.cuda.synchronize()
     launches, k3_launches = nms_cuda.launches, int8_conv.launches
+    k4_launches = bias_relu.launches
 
     n_valid, n_suppressed = {}, 0
     for b, d in served.items():
@@ -348,7 +359,7 @@ def serve_requests(det, images: dict, what: str) -> tuple:
     if n_suppressed == 0 or min(n_valid.values()) == 0:
         fail(f"the {what} slice gave NMS no work ({n_valid}, "
              f"{n_suppressed})")
-    return launches, n_valid, n_suppressed, k3_launches
+    return launches, n_valid, n_suppressed, k3_launches, k4_launches
 
 
 def rel_diff(got, want) -> float:
@@ -370,8 +381,11 @@ def phase_slice(device, state_dict, batches=SERVE_BATCHES) -> dict:
                                dtype=torch.uint8).to(device)
               for b in batches}
 
-    launches, n_valid, n_suppressed, _ = serve_requests(det, images,
-                                                        "SSD300")
+    launches, n_valid, n_suppressed, _, k4 = serve_requests(det, images,
+                                                            "SSD300")
+    if device.type == "cuda" and k4 != K4_PER_FORWARD["ssd300"] * len(
+            batches):
+        fail(f"K4 launched {k4} times for {len(batches)} SSD300 requests")
 
     # The card's loc/conf against the same model on the CPU.
     x = images[max(batches)][:CPU_CHECK_BATCH]
@@ -384,7 +398,7 @@ def phase_slice(device, state_dict, batches=SERVE_BATCHES) -> dict:
     if not rel <= 1e-3:
         fail(f"card vs CPU loc/conf differ by {rel:.3e} of their scale")
     return {"launches": launches, "valid": n_valid,
-            "suppressed": n_suppressed, "card_vs_cpu_rel": rel}
+            "suppressed": n_suppressed, "card_vs_cpu_rel": rel, "k4": k4}
 
 
 def unaligned_copy(t: torch.Tensor) -> torch.Tensor:
@@ -428,6 +442,291 @@ def phase_dw_vs_plain(device, shapes=DW_SHAPES, unaligned=DW_UNALIGNED,
                      "shape": [n, h, w, cin, cout], "max_abs_err": err,
                      "scale": scale, "rel": rel, "tol": DW_TOL[dtype]})
     return rows
+
+
+# ------------------------------------------------------------ K4
+
+K4_CHECK_BATCH = 32
+K4_TIMING_BATCH = 256
+K4_HOST_CALLS = 200
+K4_DETECTOR_BATCH = 8
+K4_B1_REQUESTS = 20
+# K4 launches per forward: SSD300's 23 ReLU'd convs (13 VGG, fc6, fc7, 8
+# extra), ResNet-34's 4 neck convs (one module called twice).
+K4_PER_FORWARD = {"ssd300": 23, "resnet34": 4}
+# Ragged and edge cases beside the models' shapes (N, C, H, W): C not a
+# multiple of the bf16 vector (8 values) nor of the f32 one (4), and the
+# map one element past a 16-byte boundary.
+K4_RAGGED = ((3, 126, 7, 9), (2, 3, 11, 5))
+K4_UNALIGNED = ((2, 64, 9, 11),)
+K4_DTYPES = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+
+
+def relu_conv_shapes(device) -> list:
+    """Every conv call that K4 serves in one batch-1 inference forward of
+    SSD300 (300 px) and ResNet-34 (224 px) on ``device``: those called
+    with ``relu=True`` that have a bias, as forward hooks see them (model,
+    conv, input and output shape, weight shape, geometry)."""
+    from objectdetection_ssd_torch.config import ModelConfig
+    from objectdetection_ssd_torch.models.layers import TorchConv
+    from objectdetection_ssd_torch.models.ssd import build_model
+    rows = []
+    for model_name, cfg, size in (
+            ("ssd300", ModelConfig(), 300),
+            ("resnet34", resnet_config(), RESNET_SIZE)):
+        model = build_model(cfg, device=device,
+                            generator=torch.Generator().manual_seed(SEED))
+
+        def hook(name):
+            def record(mod, args, kwargs, out):
+                if kwargs.get("relu") and mod.bias is not None:
+                    rows.append({
+                        "model": model_name, "conv": name,
+                        "in": tuple(args[0].shape),
+                        "out": tuple(out.shape),
+                        "weight": tuple(mod.weight.shape),
+                        "geometry": (mod.stride[0], mod.padding[0],
+                                     mod.dilation[0])})
+            return record
+
+        handles = [m.register_forward_hook(hook(n), with_kwargs=True)
+                   for n, m in model.named_modules()
+                   if isinstance(m, TorchConv)]
+        with torch.inference_mode():
+            model(torch.zeros(1, size, size, 3, dtype=torch.uint8,
+                              device=device))
+        for h in handles:
+            h.remove()
+        got = sum(r["model"] == model_name for r in rows)
+        if got != K4_PER_FORWARD[model_name]:
+            fail(f"{model_name}: {got} ReLU'd convs with a bias, want "
+                 f"{K4_PER_FORWARD[model_name]}")
+    return rows
+
+
+def k4_operands(shape, dtype, gen, device, aligned=True, specials=False):
+    """y (N, C, H, W) in channels_last memory and bias (C,) in ``dtype``:
+    normal values (y scaled by 3); ``specials`` plants NaN, +-inf and -0.0
+    in both; ``aligned=False`` puts y one element past a 16-byte
+    boundary."""
+    n, c, h, w = shape
+    y = torch.randn(n, h, w, c, generator=gen, device=device) * 3
+    b = torch.randn(c, generator=gen, device=device)
+    if specials:
+        flat = y.view(-1)
+        idx = torch.randint(0, flat.numel(), (64,), generator=gen,
+                            device=device)
+        for i, value in enumerate((math.nan, math.inf, -math.inf, -0.0)):
+            flat[idx[i::4]] = value
+        b[0], b[-1] = math.nan, -0.0
+        if c > 3:
+            b[1], b[2] = math.inf, -math.inf
+    y, b = y.to(dtype), b.to(dtype)
+    if not aligned:
+        y = unaligned_copy(y)
+    return y.permute(0, 3, 1, 2), b
+
+
+def k4_equal(got, want, int_dtype) -> bool:
+    """Bit for bit, whatever the two tensors' strides."""
+    return (got.shape == want.shape and got.dtype == want.dtype
+            and torch.equal(got.view(int_dtype), want.view(int_dtype)))
+
+
+def k4_bound_ms(shape, dtype) -> float:
+    """Least time for K4's work: y read once, out written once and the
+    bias read once, over HBM rate; its 2 operations a value (add, max)
+    over the non-tensor f32 peak take less on every shape here."""
+    n, c, h, w = shape
+    size = torch.empty((), dtype=dtype).element_size()
+    t_bytes = (2 * n * c * h * w + c) * size / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * n * c * h * w / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops)
+
+
+def k4_detector_check(device, state_dict, resnet_state_dict,
+                      batch: int = K4_DETECTOR_BATCH) -> dict:
+    """SSD300's and ResNet-34's bf16 loc/conf under ``inference_mode`` (K4
+    on the card) against the same forward with grad enabled and the input
+    requiring grad (the conv's own bias add, then ``F.relu``), on the
+    same inputs, cuDNN deterministic: bit for bit.  K4's launches in the
+    first are counted."""
+    from objectdetection_ssd_torch.config import Config, ModelConfig
+    from objectdetection_ssd_torch.infer.detector import Detector
+    from objectdetection_ssd_torch.ops import bias_relu as k4
+    out = {}
+    gen = torch.Generator().manual_seed(SEED + 41)
+    for name, cfg, sd, size in (
+            ("ssd300", ModelConfig(compute_dtype="bfloat16"), state_dict,
+             300),
+            ("resnet34", resnet_config(compute_dtype="bfloat16"),
+             resnet_state_dict, RESNET_SIZE)):
+        det = Detector(Config(model=cfg), sd, device=device)
+        x = torch.randn(batch, size, size, 3, generator=gen).to(device)
+        with deterministic_cudnn():
+            k4.launches = 0
+            with torch.inference_mode():
+                fused = det.model(x)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            launches = k4.launches
+            with torch.enable_grad():
+                plain = det.model(x.clone().requires_grad_(True))
+        plain = tuple(t.detach() for t in plain)
+        want = K4_PER_FORWARD[name] if device.type == "cuda" else 0
+        if launches != want:
+            fail(f"K4 {name}: {launches} launches in one inference forward, "
+                 f"want {want}")
+        for a, b in zip(fused, plain):
+            if not k4_equal(a, b, torch.int16):
+                fail(f"K4 {name}: inference loc/conf differ from the "
+                     f"grad-enabled forward's by "
+                     f"{float((a.float() - b.float()).abs().max()):.3e}")
+        out[name] = {"launches": launches, "batch": batch}
+    return out
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def phase_bias_relu(device, state_dict, resnet_state_dict,
+                    check_batch: int = K4_CHECK_BATCH,
+                    timing_batch: int = K4_TIMING_BATCH,
+                    detector_batch: int = K4_DETECTOR_BATCH) -> dict:
+    """K4 (`ops/bias_relu.py`) against its plain version on the same card
+    tensors, bit for bit: every SSD300 and ResNet-34 shape it serves at
+    ``check_batch`` in bf16 and f32, ragged C, an unaligned map, NaN /
+    +-inf / -0.0 in y and the bias; then the Detectors' inference forward
+    (K4) bit-equal to the grad-enabled one.  On the card also: per SSD300
+    and ResNet-34 shape at ``timing_batch`` (bf16, CUDA graph replay): K4,
+    its byte bound, the plain version, the ``add_`` + ``relu`` pair that
+    the conv ran before, the bias-free cuDNN conv and
+    ``torch.cudnn_convolution_relu`` (conv, bias and ReLU in one cuDNN
+    call) as a reference; and the host time per call of the op, the
+    direct launcher, the layer's entry, the checked entry and the pair."""
+    from objectdetection_ssd_torch.ops import bias_relu as k4
+    on_card = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(SEED + 40)
+    shapes = relu_conv_shapes(device)
+    cases = []
+    for dtype in K4_DTYPES:
+        seen = set()
+        for r in shapes:
+            shape = (check_batch,) + r["out"][1:]
+            if shape not in seen:
+                seen.add(shape)
+                cases.append((dtype, shape, True, False))
+        cases += [(dtype, s, True, False) for s in K4_RAGGED]
+        cases += [(dtype, s, False, False) for s in K4_UNALIGNED]
+        cases += [(dtype, s, True, True)
+                  for s in K4_RAGGED + K4_UNALIGNED + ((4, 64, 19, 19),)]
+        cases += [(dtype, s, False, True) for s in K4_UNALIGNED]
+    for dtype, shape, aligned, specials in cases:
+        y, b = k4_operands(shape, dtype, gen, device, aligned, specials)
+        got = k4.bias_relu(y, b)
+        want = k4.bias_relu_plain(y, b)
+        if not k4_equal(got, want, K4_DTYPES[dtype]):
+            bits = K4_DTYPES[dtype]
+            fail(f"K4 {dtype} {shape} aligned={aligned} specials="
+                 f"{specials}: {int((got.view(bits) != want.view(bits)).sum())}"
+                 f" values differ from the plain version's bits")
+        if not got.is_contiguous(memory_format=torch.channels_last):
+            fail(f"K4 {dtype} {shape}: output not channels_last")
+    out = {"compared": len(cases), "shapes": len(shapes),
+           "max_abs_err": 0.0,
+           "detector": k4_detector_check(device, state_dict,
+                                         resnet_state_dict, detector_batch)}
+    if not on_card:
+        return out
+
+    # Timing at the serving batch, one shape at a time.
+    rows = []
+    for r in shapes:
+        shape = (timing_batch,) + r["out"][1:]
+        y, b = k4_operands(shape, torch.bfloat16, gen, device)
+        scratch = y.clone()
+        reps = 3 if y.numel() > 1 << 26 else 10
+        row = {"model": r["model"], "conv": r["conv"], "shape": list(shape),
+               "ms": graph_ms(lambda: k4.bias_relu(y, b), reps=reps),
+               "plain_ms": graph_ms(lambda: k4.bias_relu_plain(y, b),
+                                    reps=reps),
+               # What the conv ran before: aten's in-place bias add after
+               # cuDNN, then F.relu.
+               "pair_ms": graph_ms(lambda: torch.relu(
+                   scratch.add_(b[None, :, None, None])), reps=reps),
+               "bound_ms": k4_bound_ms(shape, torch.bfloat16),
+               "bound_by": "bytes"}
+        del y, scratch
+        # The conv's input and weight at this shape; both cuDNN calls timed
+        # eagerly between CUDA events (no graph capture of a fused call
+        # that may be refused).
+        cin = r["in"][1]
+        x = torch.randn((timing_batch, r["in"][2], r["in"][3], cin),
+                        generator=gen, device=device).to(torch.bfloat16)
+        x = x.permute(0, 3, 1, 2)
+        w = (torch.randn(r["weight"], generator=gen, device=device)
+             * 0.05).to(torch.bfloat16).contiguous(
+                 memory_format=torch.channels_last)
+        stride, padding, dilation = r["geometry"]
+        iters = 3 * reps
+        row["conv_ms"] = cuda_ms(lambda: torch.nn.functional.conv2d(
+            x, w, None, stride, padding, dilation), iters)
+        try:
+            fused = lambda: torch.cudnn_convolution_relu(  # noqa: E731
+                x, w, b, (stride, stride), (padding, padding),
+                (dilation, dilation), 1)
+            fused()
+            row["cudnn_relu_ms"] = cuda_ms(fused, iters)
+        except (RuntimeError, AttributeError) as e:
+            row["cudnn_relu_ms"] = None
+            row["cudnn_relu_error"] = str(e).splitlines()[0][:120]
+        del x, w
+        torch.cuda.empty_cache()
+        row["share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+    out["rows"] = rows
+
+    # One batch-1 bf16 SSD300 request: its device operations (K4's 23
+    # among them) and their device time.
+    from objectdetection_ssd_torch.config import Config, ModelConfig
+    from objectdetection_ssd_torch.infer.detector import Detector
+    det = Detector(Config(model=ModelConfig(compute_dtype="bfloat16")),
+                   state_dict, device=device)
+    x1 = torch.randint(0, 256, (1, 300, 300, 3), dtype=torch.uint8,
+                       generator=gen, device=device)
+    ms, kernels = device_ms_per_call(lambda: det.detect_batch(x1),
+                                     K4_B1_REQUESTS)
+    out["b1"] = {"device_ms": ms,
+                 "ops": sum(kernels.values()) / K4_B1_REQUESTS,
+                 "k4": sum(v for k, v in kernels.items()
+                           if "bias_relu" in k) / K4_B1_REQUESTS}
+    del det
+
+    # Host time per call at the smallest SSD300 map at batch 1, in turns.
+    small = min((r for r in shapes if r["model"] == "ssd300"),
+                key=lambda r: math.prod(r["out"]))
+    y, b = k4_operands((1,) + small["out"][1:], torch.bfloat16, gen, device)
+    scratch = y.clone()
+    calls = {"op": lambda: torch.ops.ssd.bias_relu(y, b),
+             "launcher": lambda: k4.launch(y, b),
+             "conv_bias_relu": lambda: k4.conv_bias_relu(y, b),
+             "bias_relu": lambda: k4.bias_relu(y, b),
+             "pair": lambda: torch.relu(scratch.add_(b[None, :, None,
+                                                       None]))}
+    host = {key: [] for key in calls}
+    for _ in range(2):
+        for key, fn in calls.items():
+            host[key].append(host_ms_per_call(fn, K4_HOST_CALLS))
+    out["host_shape"] = [1] + list(small["out"][1:])
+    out["host_ms"] = {key: min(v) for key, v in host.items()}
+    return out
 
 
 def synthetic_batch(batch: int, gen: torch.Generator,
@@ -1366,10 +1665,14 @@ def phase_resnet_slice(device, state_dict, batches=SERVE_BATCHES) -> dict:
                                generator=gen, dtype=torch.uint8).to(device)
               for b in batches}
 
-    launches, n_valid, n_suppressed, _ = serve_requests(det, images,
-                                                        "ResNet-34")
+    launches, n_valid, n_suppressed, _, k4 = serve_requests(det, images,
+                                                            "ResNet-34")
     if device.type == "cuda" and launches != len(batches):
         fail(f"K1 launched {launches} times for {len(batches)} ResNet-34 "
+             f"requests")
+    if device.type == "cuda" and k4 != K4_PER_FORWARD["resnet34"] * len(
+            batches):
+        fail(f"K4 launched {k4} times for {len(batches)} ResNet-34 "
              f"requests")
 
     # f32: the card's loc/conf against the CPU's.
@@ -1386,7 +1689,8 @@ def phase_resnet_slice(device, state_dict, batches=SERVE_BATCHES) -> dict:
     # Soft-NMS and TTA: the merged loc/conf card vs CPU, then the
     # postprocess on the card against the CPU's on the card's numbers.
     out = {"launches": launches, "valid": n_valid,
-           "suppressed": n_suppressed, "card_vs_cpu_rel": rel, "opt_in": {}}
+           "suppressed": n_suppressed, "card_vs_cpu_rel": rel, "opt_in": {},
+           "k4": k4}
     for name, kw in (("soft_gaussian", {"nms_method": "soft_gaussian"}),
                      ("soft_linear", {"nms_method": "soft_linear"}),
                      ("tta_flip", {"tta_flip": True}),
@@ -2053,7 +2357,7 @@ def phase_int8_slice(device, state_dict, resnet_state_dict,
     det_c = Detector(cfg, state_dict, device=device, quant=chained)
     det_u = Detector(cfg, state_dict, device=device, quant=qtree)
     images = images_of(300, batches)
-    k1, n_valid, n_suppressed, k3_launches = serve_requests(
+    k1, n_valid, n_suppressed, k3_launches, _ = serve_requests(
         det_c, images, "SSD300 int8")
     if cuda and (k3_launches != SSD300_INT8_CONVS * len(batches)
                  or k1 != len(batches)):
@@ -2088,7 +2392,7 @@ def phase_int8_slice(device, state_dict, resnet_state_dict,
         fail("a ResNet-34 scale tree gained chain edges")
     det = Detector(cfg, resnet_state_dict, device=device, quant=rtree)
     images = images_of(RESNET_SIZE, batches)
-    k1, n_valid, n_suppressed, k3_launches = serve_requests(
+    k1, n_valid, n_suppressed, k3_launches, _ = serve_requests(
         det, images, "ResNet-34 int8")
     if cuda and (k3_launches != RESNET_INT8_CALLS * len(batches)
                  or k1 != len(batches)):
@@ -2670,8 +2974,10 @@ def phase_export(device, state_dict, resnet_state_dict, root: str,
     f32 with flip TTA at ``batch``.  Each call runs two chunks, and a
     reload of the directory once more: its detections equal the live
     `Detector.detect_batch` on the same chunks to JAX's gate, with K1
-    launched once and K3 23 times (int8 SSD300) per chunk.  On the card
-    also: `torch.library.opcheck` of both ops on CUDA tensors; the int8
+    launched once, K3 23 times (int8 SSD300) and K4 23 times (bf16
+    SSD300) or 8 (ResNet-34, two forwards with flip TTA) per chunk.  On
+    the card also: `torch.library.opcheck` of the three ops on CUDA
+    tensors; the int8
     and ResNet-34 artifacts moved to the CPU against the card
     (`match_detections`); `MicroBatcher` over `MinimalExportedDetector`
     answering `BATCHER_REQUESTS` concurrent requests with the rows of one
@@ -2687,7 +2993,7 @@ def phase_export(device, state_dict, resnet_state_dict, root: str,
     from objectdetection_ssd_torch.infer.export import (ExportedDetector,
                                                         export_detector)
     from objectdetection_ssd_torch.infer.postprocess import Detections
-    from objectdetection_ssd_torch.ops import int8_conv
+    from objectdetection_ssd_torch.ops import bias_relu, int8_conv
 
     on_card = device.type == "cuda"
     gen = torch.Generator().manual_seed(SEED + 30)
@@ -2701,16 +3007,19 @@ def phase_export(device, state_dict, resnet_state_dict, root: str,
                                                device, ssd_images), "vgg16")
     specs = {
         "ssd300_bf16": (Config(model=ModelConfig(compute_dtype="bfloat16")),
-                        state_dict, None, batch, ssd_images, 0),
+                        state_dict, None, batch, ssd_images, 0,
+                        K4_PER_FORWARD["ssd300"]),
         "ssd300_int8_latency": (latency, state_dict, qtree, 1,
-                                ssd_images[:2], SSD300_INT8_CONVS),
+                                ssd_images[:2], SSD300_INT8_CONVS, 0),
         "resnet34_tta": (Config(model=resnet_config(),
                                 postprocess=PostprocessConfig(
                                     tta_flip=True)),
-                         resnet_state_dict, None, batch, r34_images, 0),
+                         resnet_state_dict, None, batch, r34_images, 0,
+                         2 * K4_PER_FORWARD["resnet34"]),
     }
-    out = {"k1": 0, "k3": 0, "artifacts": {}}
-    for name, (cfg, sd, tree, size, images, k3_per_chunk) in specs.items():
+    out = {"k1": 0, "k3": 0, "k4": 0, "artifacts": {}}
+    for name, (cfg, sd, tree, size, images, k3_per_chunk,
+               k4_per_chunk) in specs.items():
         path = os.path.join(root, name)
         t0 = time.perf_counter()
         export_detector(cfg, sd, path, batch_size=size, quant=tree,
@@ -2722,17 +3031,21 @@ def phase_export(device, state_dict, resnet_state_dict, root: str,
         chunks = images.shape[0] // size
         nms_cuda.launches = 0
         int8_conv.launches = 0
+        bias_relu.launches = 0
         got = served(images)
         again = ExportedDetector(path, device=device)(images)
         if on_card:
             torch.cuda.synchronize()
         k1, k3 = nms_cuda.launches, int8_conv.launches
-        if on_card and (k1, k3) != (2 * chunks,
-                                    2 * chunks * k3_per_chunk):
-            fail(f"export {name}: {k1} K1 and {k3} K3 launches in "
-                 f"{2 * chunks} chunks")
+        k4 = bias_relu.launches
+        if on_card and (k1, k3, k4) != (2 * chunks,
+                                        2 * chunks * k3_per_chunk,
+                                        2 * chunks * k4_per_chunk):
+            fail(f"export {name}: {k1} K1, {k3} K3 and {k4} K4 launches "
+                 f"in {2 * chunks} chunks")
         out["k1"] += k1
         out["k3"] += k3
+        out["k4"] += k4
         live = Detector(cfg, sd, device=device, quant=tree)
         want = [live.detect_batch(images[i:i + size])
                 for i in range(0, images.shape[0], size)]
@@ -2746,13 +3059,16 @@ def phase_export(device, state_dict, resnet_state_dict, root: str,
         ops = [str(node.target) for node in served.program.graph.nodes
                if node.op == "call_function"]
         row = {"export_s": export_s, "load_s": load_s, "batch": size,
-               "chunks": 2 * chunks, "k1": k1, "k3": k3,
+               "chunks": 2 * chunks, "k1": k1, "k3": k3, "k4": k4,
                "valid": int(got.valid.sum()), "meta": served.meta,
                "ops": len(ops), "op_counts": {
                    key: ops.count(key) for key in (
                        "aten._assert_tensor_metadata.default",
                        "aten.to.dtype", "ssd.nms_keep.default",
-                       "ssd.int8_conv.default")}}
+                       "ssd.int8_conv.default", "ssd.bias_relu.default")}}
+        if on_card and ops.count("ssd.bias_relu.default") != k4_per_chunk:
+            fail(f"export {name}: {ops.count('ssd.bias_relu.default')} "
+                 f"ssd.bias_relu nodes, want {k4_per_chunk}")
         if on_card and name != "ssd300_bf16":
             cpu = ExportedDetector(path, device="cpu")(images.cpu())
             row["cpu"] = match_detections(
@@ -2808,6 +3124,11 @@ def phase_export(device, state_dict, resnet_state_dict, root: str,
                      (x_q, w_q, scale, None, 2, 1, 1, torch.bfloat16,
                       torch.tensor(0.05, device=device))):
             torch.library.opcheck(torch.ops.ssd.int8_conv.default, args)
+        for dtype in K4_DTYPES:
+            y, b = k4_operands((2, 64, 9, 11), dtype,
+                               torch.Generator(device=device).manual_seed(
+                                   SEED + 31), device)
+            torch.library.opcheck(torch.ops.ssd.bias_relu.default, (y, b))
     return out
 
 
@@ -4809,6 +5130,7 @@ def main(argv=None) -> int:
         return 1
     from objectdetection_ssd_torch import cuda_build
     from objectdetection_ssd_torch.infer import nms_cuda
+    from objectdetection_ssd_torch.ops import bias_relu
     from objectdetection_ssd_torch.ops import dw_cuda
     from objectdetection_ssd_torch.ops import int8_conv
 
@@ -4823,7 +5145,7 @@ def main(argv=None) -> int:
     # nvcc per source, all started together.
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     sources = {"K1": nms_cuda.SOURCE, "K2": dw_cuda.SOURCE,
-               "K3": int8_conv.SOURCE}
+               "K3": int8_conv.SOURCE, "K4": bias_relu.SOURCE}
     for path in args.k1_baseline:
         sources[f"K1 baseline {path.stem}"] = path.resolve()
     for path in args.k3_baseline:
@@ -4833,6 +5155,7 @@ def main(argv=None) -> int:
     nms_cuda.build()
     dw_cuda.build()
     int8_conv.build()
+    bias_relu.build()
     build_s = time.perf_counter() - t0
     k1_baselines = {path.stem: k1_library_launcher(path.resolve())
                     for path in args.k1_baseline}
@@ -4877,13 +5200,59 @@ def main(argv=None) -> int:
     dw_worst = max(r["max_abs_err"] for r in dw_rows)
 
     sd = seeded_state_dict()
+    rsd = seeded_resnet_state_dict()
+    t_phase = time.perf_counter()
+    br = phase_bias_relu(device, sd, rsd)
+    det_k4 = "; ".join(f"{k} {v['launches']} launches" for k, v in
+                       br["detector"].items())
+    print(f"bias-relu kernel: K4 bit-equal to its plain version in "
+          f"{br['compared']} comparisons: the {br['shapes']} SSD300 and "
+          f"ResNet-34 ReLU'd conv outputs at batch {K4_CHECK_BATCH}, ragged "
+          f"C {[s[1] for s in K4_RAGGED]}, an unaligned map, NaN / +-inf / "
+          f"-0.0 in y and the bias, bf16 and f32 (max_abs_err "
+          f"{br['max_abs_err']}); bf16 loc/conf of one inference forward "
+          f"(K4: {det_k4}) bit-equal to the grad-enabled forward's "
+          f"(bias in the conv, then F.relu), batch {K4_DETECTOR_BATCH}, "
+          f"cuDNN deterministic")
+    for r in br["rows"]:
+        fused = ("not available: " + r["cudnn_relu_error"]
+                 if r["cudnn_relu_ms"] is None
+                 else f"{r['cudnn_relu_ms'] * 1e3:.1f} us")
+        print(f"bias-relu timing: K4 {r['model']} {r['conv']} {r['shape']} "
+              f"bf16 ({smi}): {r['ms'] * 1e3:.1f} us (CUDA graph), bound "
+              f"{r['bound_ms'] * 1e3:.1f} us by bytes ({r['share']:.3f} of "
+              f"it); plain {r['plain_ms'] * 1e3:.1f} us; add_ + relu "
+              f"{r['pair_ms'] * 1e3:.1f} us; bias-free cuDNN conv "
+              f"{r['conv_ms'] * 1e3:.1f} us; torch.cudnn_convolution_relu "
+              f"{fused}")
+    ssd_rows = [r for r in br["rows"] if r["model"] == "ssd300"]
+    print(f"bias-relu timing: the {len(ssd_rows)} K4 launches of one "
+          f"batch-{K4_TIMING_BATCH} bf16 SSD300 forward ({smi}): "
+          f"{sum(r['ms'] for r in ssd_rows):.3f} ms, bound "
+          f"{sum(r['bound_ms'] for r in ssd_rows):.3f} ms, plain "
+          f"{sum(r['plain_ms'] for r in ssd_rows):.3f} ms, add_ + relu "
+          f"{sum(r['pair_ms'] for r in ssd_rows):.3f} ms; bias-free cuDNN "
+          f"convs {sum(r['conv_ms'] for r in ssd_rows):.3f} ms" + (
+              "" if any(r["cudnn_relu_ms"] is None for r in ssd_rows) else
+              f", torch.cudnn_convolution_relu "
+              f"{sum(r['cudnn_relu_ms'] for r in ssd_rows):.3f} ms"))
+    print(f"bias-relu b1: one bf16 SSD300 detect_batch(1) ({smi}): "
+          f"{br['b1']['ops']:.1f} device operations per request, "
+          f"{br['b1']['k4']:.1f} of them K4, {br['b1']['device_ms']:.3f} "
+          f"device ms (torch.profiler, {K4_B1_REQUESTS} requests)")
+    print(f"bias-relu host: {br['host_shape']} bf16, host us per call, best "
+          f"of 2 turns of {K4_HOST_CALLS} calls ({smi}): " + ", ".join(
+              f"{k} {v * 1e3:.2f}" for k, v in br["host_ms"].items())
+          + f"; the phase took {time.perf_counter() - t_phase:.1f} s")
+
     sl = phase_slice(device, sd)
     if sl["launches"] < len(SERVE_BATCHES):
         fail(f"K1 launched {sl['launches']} times on the main path")
     print(f"slice: detect_batch f32 on {list(SERVE_BATCHES)}: valid "
           f"{sl['valid']}, suppressed {sl['suppressed']}, K1 launches "
-          f"{sl['launches']}, kernel == plain-NMS detections, card vs CPU "
-          f"loc/conf {sl['card_vs_cpu_rel']:.3e} of scale")
+          f"{sl['launches']}, K4 launches {sl['k4']}, kernel == plain-NMS "
+          f"detections, card vs CPU loc/conf {sl['card_vs_cpu_rel']:.3e} of "
+          f"scale")
 
     tr = phase_train_slice(device)
     print(f"train slice: {TRAIN_STEPS} train_steps f32 (TF32 off) batch "
@@ -5022,11 +5391,11 @@ def main(argv=None) -> int:
 
     # The ResNet-34 family, Soft-NMS, flip TTA, the loaders' CLI and remat.
     t_phase = time.perf_counter()
-    rsd = seeded_resnet_state_dict()
     rs = phase_resnet_slice(device, rsd)
     print(f"resnet34 slice: detect_batch bf16 {RESNET_SIZE} px on "
           f"{list(SERVE_BATCHES)}: valid {rs['valid']}, suppressed "
-          f"{rs['suppressed']}, K1 launches {rs['launches']}, kernel == "
+          f"{rs['suppressed']}, K1 launches {rs['launches']}, K4 launches "
+          f"{rs['k4']}, kernel == "
           f"plain-NMS detections; f32 card vs CPU loc/conf "
           f"{rs['card_vs_cpu_rel']:.3e} of scale (non-trivial BN "
           f"statistics); card == CPU detections (atol {SOFT_NMS_ATOL:.0e}) "
@@ -5212,7 +5581,8 @@ def main(argv=None) -> int:
               f"{m['tta_flip']}): export {r['export_s']:.2f} s, load "
               f"{r['load_s']:.2f} s; {r['chunks']} chunks (two, and a "
               f"reload) == live detect_batch (JAX's gate), K1 {r['k1']}, "
-              f"K3 {r['k3']}, valid {r['valid']}{cpu}; the program: "
+              f"K3 {r['k3']}, K4 {r['k4']}, valid {r['valid']}{cpu}; the "
+              f"program: "
               f"{r['ops']} operator calls, of them " + ", ".join(
                   f"{v} {k}" for k, v in r["op_counts"].items()))
         print(f"export timing: {name} batch {r['batch']} ({smi}), best of "
@@ -5227,10 +5597,14 @@ def main(argv=None) -> int:
     print(f"export: MicroBatcher over MinimalExportedDetector answered "
           f"{BATCHER_REQUESTS} concurrent requests in {ex['batcher_calls']} "
           f"program calls with the rows of one batched call; opcheck "
-          f"passed for ssd::nms_keep and ssd::int8_conv on CUDA tensors; "
+          f"passed for ssd::nms_keep, ssd::int8_conv and ssd::bias_relu on "
+          f"CUDA tensors; "
           f"the phase took {time.perf_counter() - t_phase:.1f} s")
     k1_launches += ex["k1"]
     k3_launches += ex["k3"]
+    # The serving requests of SSD300 and ResNet-34 and the artifacts'
+    # chunks.
+    k4_launches = sl["k4"] + rs["k4"] + ex["k4"]
 
     # The JAX package's remaining public names, before any process group.
     ap = phase_api(device)
@@ -5537,6 +5911,29 @@ def main(argv=None) -> int:
             baseline_ms=(next(iter(r["baselines"].values()))
                          if r["baselines"] else None))
             for r in k3_rows],
+    }, {
+        "name": "bias_relu",
+        "route": "cuda",
+        "source": "objectdetection_ssd_torch/csrc/bias_relu.cu",
+        "replaces": "none: the bias add of objectdetection_ssd_tpu/models/"
+                    "layers.py:201 (TorchConv) and nn.relu of models/"
+                    "backbones.py:97, which XLA fuses into the conv",
+        "launches": k4_launches,
+        "max_abs_err": br["max_abs_err"],
+        # The 23 launches of one batch-256 bf16 SSD300 forward, summed.
+        "ms": sum(r["ms"] for r in ssd_rows),
+        "plain_ms": sum(r["plain_ms"] for r in ssd_rows),
+        "bound_ms": sum(r["bound_ms"] for r in ssd_rows),
+        "bound_by": "bytes",
+        # No one PyTorch call adds a bias and applies ReLU; pair_ms is the
+        # add_ + relu that the conv ran before.
+        "library_ms": None,
+        "pair_ms": sum(r["pair_ms"] for r in ssd_rows),
+        "host_ms": br["host_ms"],
+        "per_shape": [{key: r.get(key) for key in (
+            "model", "conv", "shape", "ms", "plain_ms", "pair_ms",
+            "bound_ms", "bound_by", "share", "conv_ms", "cudnn_relu_ms")}
+            for r in br["rows"]],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

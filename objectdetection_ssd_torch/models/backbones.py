@@ -88,7 +88,7 @@ class VGG16Trunk(nn.Module):
 
     def _block(self, x: torch.Tensor, name: str, n: int) -> torch.Tensor:
         for i in range(n):
-            x = F.relu(getattr(self, f"{name}_{i + 1}")(x))
+            x = getattr(self, f"{name}_{i + 1}")(x, relu=True)
         return x
 
     def _cut(self, x: torch.Tensor, stage: int) -> torch.Tensor:
@@ -106,8 +106,8 @@ class VGG16Trunk(nn.Module):
         x = max_pool(x, 2, 2, part=self.part)                   # 38 -> 19
         x = max_pool(self._block(x, "conv5", 3), 3, 1, padding=1,
                      part=self.part)                            # 19 -> 19
-        x = F.relu(self.conv_fc6(x))
-        x = F.relu(self.conv_fc7(x))
+        x = self.conv_fc6(x, relu=True)
+        x = self.conv_fc7(x, relu=True)
         return self._cut(x, 5)
 
     def forward(self, x: torch.Tensor, remat: bool = False

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor
 
+from objectdetection_ssd_torch.ops import bias_relu as k4
 from objectdetection_ssd_torch.ops import int8_conv as k3
 from objectdetection_ssd_torch.ops.dw_cuda import conv3x3p1
 from objectdetection_ssd_torch.parallel.collectives import all_reduce_sum
@@ -225,22 +226,43 @@ class TorchConv(nn.Conv2d):
         y = F.conv2d(ext, weight, bias, stride, (0, padding), dilation)
         return part.narrow_rows(y, 0, rows)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _fuses_bias_relu(self, x: torch.Tensor) -> bool:
+        """Whether the forward's bias add and ReLU run on kernel K4: a
+        plain conv with a bias (no ``part``, ``quant`` or K2 route) on a
+        CUDA input, with nothing for autograd to record."""
+        return (x.is_cuda and self.bias is not None and self.part is None
+                and self.quant is None and not self.dw_route
+                and not (torch.is_grad_enabled()
+                         and (x.requires_grad or self.weight.requires_grad
+                              or self.bias.requires_grad)))
+
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        """The conv, then ReLU with ``relu=True``.  On the card's inference
+        forward of a plain conv with a bias (`_fuses_bias_relu`) cuDNN runs
+        without the bias and K4 adds it and applies the ReLU in one pass
+        (`ops/bias_relu.py`); everywhere else the conv adds its bias and
+        ``F.relu`` follows."""
         if self.part is not None:
             x = self.part.full_channels(x, self.in_channels)
         if self.quant is not None:
-            return self._quant_forward(x, self.quant)
+            y = self._quant_forward(x, self.quant)
+            return F.relu(y) if relu else y
         weight = _cast(_local(self.weight), x.dtype)
         bias = (None if self.bias is None
                 else _cast(_local(self.bias), x.dtype))
+        if relu and self._fuses_bias_relu(x):
+            return k4.conv_bias_relu(self._conv_forward(x, weight, None),
+                                     bias)
         if _spatial(self.part):
-            return self._spatial_forward(x, weight, bias)
-        if self.dw_route:
+            y = self._spatial_forward(x, weight, bias)
+        elif self.dw_route:
             # The bias is added outside the Function, as the JAX
             # `_DWPallasConv` adds it (`layers.py:160-162`).
             y = conv3x3p1(x, weight)
-            return y if bias is None else y + bias[:, None, None]
-        return self._conv_forward(x, weight, bias)
+            y = y if bias is None else y + bias[:, None, None]
+        else:
+            y = self._conv_forward(x, weight, bias)
+        return F.relu(y) if relu else y
 
     def reset_parameters(self,
                          generator: Optional[torch.Generator] = None) -> None:

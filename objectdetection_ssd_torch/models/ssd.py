@@ -145,8 +145,8 @@ def ssd300_post_trunk(model: SSD300, conv4_3: torch.Tensor, x: torch.Tensor
     x = full(x, 1024)
     taps: List[torch.Tensor] = [full(model.l2norm_4_3(conv4_3), 512), x]
     for name, _, _, out, _, _ in _EXTRAS:
-        x = F.relu(getattr(model, f"{name}_1")(x))
-        x = full(F.relu(getattr(model, f"{name}_2")(x)), out)
+        x = getattr(model, f"{name}_1")(x, relu=True)
+        x = full(getattr(model, f"{name}_2")(x, relu=True), out)
         taps.append(x)
     locs, confs = [], []
     for i, (tap, k) in enumerate(zip(taps, _TAP_ANCHORS)):
@@ -177,7 +177,7 @@ class _NeckBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
-        return self.drop(self.bn(F.relu(self.conv(x))), generator)
+        return self.drop(self.bn(self.conv(x, relu=True)), generator)
 
 
 class _LocHead(nn.Module):
