@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (`objectdetection_ssd_torch`) on one CUDA
 card: builds every hand kernel (K1 greedy NMS, K2 the 3x3 filter
-gradient, K3 the int8 conv, K4 the fused bias add and ReLU), holds each
+gradient, K3 the int8 conv, K4 the fused bias add and ReLU, K5 the max
+pool), holds each
 against its plain PyTorch version, serves SSD300
 requests through `Detector`, takes SSD300 train steps with K2 on the
 routed convs, times both paths, and drives the training entry point
@@ -24,8 +25,15 @@ forward bit-equal to the grad-enabled one; per shape at batch 256 its
 time against its byte bound, the plain version, the add_ + relu pair it
 replaces, the bias-free cuDNN conv and torch.cudnn_convolution_relu;
 host time per call of the op, the launcher, the layer's entry, the
-checked entry and the pair), the serving
-slice (K4 23 launches per SSD300 request, 4 per ResNet-34 one),
+checked entry and the pair), the max-pool kernel (K5 bit-equal to its
+plain version at every pool the port serves at batch 256 in bf16, f32 and
+int8, ragged, odd, unaligned and sliced maps, NaN / inf / signed-zero
+cases; per pool at batch 256 its
+time against its byte bound, the plain version (int8: the f16 round trip
+it replaces) and F.max_pool2d; host time per call of the op, the
+launcher, the layer's entry, the checked entry and F.max_pool2d), the
+serving slice (K4 23 and K5 5 launches per SSD300 request, 4 and 1 per
+ResNet-34 one),
 serving timing (K1 at the serving and the exact-eval shape: device time
 per launch from torch.profiler, host time per call, CUDA-event time,
 valid counts, bounds), the train slice (with the routed conv's dX
@@ -43,8 +51,8 @@ one with the peak memory of each, and ResNet-34 serving, Soft-NMS, TTA,
 K1 and train-step timing.  Then int8: K3 bit-equal to its plain version
 at every SSD300 and ResNet-34 conv shape, ragged ones that reach every
 instantiation of its plan, and requantize ties; int8 serving
-of both families calibrated on the card (K3 counted per forward, chained
-== unchained, card vs CPU, flip TTA); int8 serving at batch 256 beside
+of both families calibrated on the card (K3 and K5 counted per forward,
+chained == unchained, card vs CPU, flip TTA); int8 serving at batch 256 beside
 bf16 and K3 per conv shape at batch 32 against its bound, cuDNN's bf16
 conv, `torch._int_mm` and any `--k3-baseline`; QAT steps card vs CPU and
 `cli train --qat` -> `eval` / `detect --int8` with the fingerprint
@@ -52,10 +60,11 @@ binding enforced.  Then the serving artifact (`infer/export.py`): SSD300
 bf16, SSD300 int8 as `cli export --latency-profile` builds it and
 ResNet-34 with flip TTA, each exported on the card, loaded and served
 through `ExportedDetector` (== the live `detect_batch`, K1 once, K3 23
-times and K4 23 (bf16 SSD300) or 8 (ResNet-34 with TTA) times per chunk),
-reloaded, moved to the CPU, and timed against the live
+times, K4 23 (bf16 SSD300) or 8 (ResNet-34 with TTA) and K5 5 (SSD300) or
+2 (ResNet-34 with TTA) times per chunk, one ``ssd.max_pool`` node per
+pool), reloaded, moved to the CPU, and timed against the live
 Detector with and without a CUDA graph; `torch.library.opcheck` of the
-three custom ops; the MicroBatcher over 16 concurrent requests.  Then data
+four custom ops; the MicroBatcher over 16 concurrent requests.  Then data
 parallelism (`parallel/`): a two-rank DDP step over gloo with both ranks
 on the one card against the single-process step; under a one-rank NCCL
 group joined through `distributed.initialize` (NCCL takes one rank per
@@ -326,18 +335,19 @@ def serve_requests(det, images: dict, what: str) -> tuple:
     after), each result well formed, and the kernel path's detections
     equal to the plain-NMS path's on the same loc/conf.  Returns (K1
     launches, valid detections per batch, candidates suppressed, K3
-    launches, K4 launches)."""
+    launches, K4 launches, K5 launches)."""
     from objectdetection_ssd_torch.infer import nms_cuda
     from objectdetection_ssd_torch.infer import postprocess as pp
-    from objectdetection_ssd_torch.ops import bias_relu, int8_conv
+    from objectdetection_ssd_torch.ops import bias_relu, int8_conv, max_pool
     nms_cuda.launches = 0
     int8_conv.launches = 0
     bias_relu.launches = 0
+    max_pool.launches = 0
     served = {b: det.detect_batch(x) for b, x in images.items()}
     if det.device.type == "cuda":
         torch.cuda.synchronize()
     launches, k3_launches = nms_cuda.launches, int8_conv.launches
-    k4_launches = bias_relu.launches
+    k4_launches, k5_launches = bias_relu.launches, max_pool.launches
 
     n_valid, n_suppressed = {}, 0
     for b, d in served.items():
@@ -359,7 +369,8 @@ def serve_requests(det, images: dict, what: str) -> tuple:
     if n_suppressed == 0 or min(n_valid.values()) == 0:
         fail(f"the {what} slice gave NMS no work ({n_valid}, "
              f"{n_suppressed})")
-    return launches, n_valid, n_suppressed, k3_launches, k4_launches
+    return (launches, n_valid, n_suppressed, k3_launches, k4_launches,
+            k5_launches)
 
 
 def rel_diff(got, want) -> float:
@@ -381,11 +392,14 @@ def phase_slice(device, state_dict, batches=SERVE_BATCHES) -> dict:
                                dtype=torch.uint8).to(device)
               for b in batches}
 
-    launches, n_valid, n_suppressed, _, k4 = serve_requests(det, images,
-                                                            "SSD300")
+    launches, n_valid, n_suppressed, _, k4, k5 = serve_requests(
+        det, images, "SSD300")
     if device.type == "cuda" and k4 != K4_PER_FORWARD["ssd300"] * len(
             batches):
         fail(f"K4 launched {k4} times for {len(batches)} SSD300 requests")
+    if device.type == "cuda" and k5 != K5_PER_FORWARD["ssd300"] * len(
+            batches):
+        fail(f"K5 launched {k5} times for {len(batches)} SSD300 requests")
 
     # The card's loc/conf against the same model on the CPU.
     x = images[max(batches)][:CPU_CHECK_BATCH]
@@ -398,7 +412,8 @@ def phase_slice(device, state_dict, batches=SERVE_BATCHES) -> dict:
     if not rel <= 1e-3:
         fail(f"card vs CPU loc/conf differ by {rel:.3e} of their scale")
     return {"launches": launches, "valid": n_valid,
-            "suppressed": n_suppressed, "card_vs_cpu_rel": rel, "k4": k4}
+            "suppressed": n_suppressed, "card_vs_cpu_rel": rel, "k4": k4,
+            "k5": k5}
 
 
 def unaligned_copy(t: torch.Tensor) -> torch.Tensor:
@@ -725,6 +740,189 @@ def phase_bias_relu(device, state_dict, resnet_state_dict,
         for key, fn in calls.items():
             host[key].append(host_ms_per_call(fn, K4_HOST_CALLS))
     out["host_shape"] = [1] + list(small["out"][1:])
+    out["host_ms"] = {key: min(v) for key, v in host.items()}
+    return out
+
+
+# ------------------------------------------------------------ K5
+
+K5_TIMING_BATCH = 256
+K5_HOST_CALLS = 200
+# K5 launches per inference forward on the card: SSD300's pools 1-5, the
+# ResNet-34 stem's pool.
+K5_PER_FORWARD = {"ssd300": 5, "resnet34": 1}
+# Every pool the port serves, per image (C, H, W) with (window, stride,
+# padding, ceil_mode): SSD300's five (`models/backbones.py:VGG16Trunk`),
+# pool3 in ceil mode (75 -> 38), pool5 3x3/s1/p1; the ResNet-34 stem's
+# 3x3/s2/p1.  The int8 cell pools 1, 2, 3 and 5 in int8: conv4_3, which
+# also feeds the L2Norm, is no chained producer, so pool4 stays bf16.
+K5_POOLS = (("ssd300", "pool1", (64, 300, 300), (2, 2, 0, False)),
+            ("ssd300", "pool2", (128, 150, 150), (2, 2, 0, False)),
+            ("ssd300", "pool3", (256, 75, 75), (2, 2, 0, True)),
+            ("ssd300", "pool4", (512, 38, 38), (2, 2, 0, False)),
+            ("ssd300", "pool5", (512, 19, 19), (3, 1, 1, False)),
+            ("resnet34", "stem", (64, 112, 112), (3, 2, 1, False)))
+K5_INT8_POOLS = ("pool1", "pool2", "pool3", "pool5")
+# Cases beside the models' shapes (N, C, H, W): C not a multiple of the
+# vector width (8 bf16, 4 f32, 16 int8 values), and odd maps; each at
+# every geometry of K5_POOLS, the stem's in ceil mode, and a window that
+# no model uses (4x4/s3/p2, which the scalar kernel takes).
+K5_RAGGED = ((3, 126, 7, 9), (2, 3, 11, 5))
+K5_EXTRA_GEOMETRIES = ((3, 2, 1, True), (4, 3, 2, False), (4, 3, 2, True))
+K5_DTYPES = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+             torch.int8: torch.int8}
+
+
+def k5_map(shape, dtype, gen, device, specials=False):
+    """An (N, C, H, W) map in ``channels_last`` memory: normal values (x3;
+    int8 in [-127, 127]); ``specials`` plants NaN, +-inf, +-0.0, windows
+    of zeros of both signs and of -inf (int8: -128 and 127, and windows of
+    one value)."""
+    n, c, h, w = shape
+    x = torch.randn(n, h, w, c, generator=gen, device=device) * 3
+    if dtype == torch.int8:
+        x = (x * 10).round().clamp(-127, 127)
+    if specials:
+        flat = x.view(-1)
+        idx = torch.randint(0, flat.numel(), (80,), generator=gen,
+                            device=device)
+        values = ((-128.0, 127.0) if dtype == torch.int8
+                  else (math.nan, math.inf, -math.inf, 0.0, -0.0))
+        for i, value in enumerate(values):
+            flat[idx[i::len(values)]] = value
+        if dtype == torch.int8:
+            x[:, :3, :3] = -128.0
+        else:
+            sign = torch.rand(n, 3, 3, c, generator=gen, device=device) < 0.5
+            x[:, :3, :3] = torch.where(sign, 0.0, -0.0)
+            x[:, -2:, -2:] = -math.inf
+    return x.to(dtype).permute(0, 3, 1, 2)
+
+
+def k5_bound_ms(shape, geometry, dtype) -> tuple:
+    """Least time for K5's work on an (N, C, H, W) map: the input read once
+    and the output written once over HBM rate, against one compare a
+    value per tap over the non-tensor f32 peak; (ms, "bytes" or
+    "operations")."""
+    from objectdetection_ssd_torch.ops import max_pool as k5
+    n, c, h, w = shape
+    window, stride, padding, ceil_mode = geometry
+    ho = k5.out_size(h, window, stride, padding, ceil_mode)
+    wo = k5.out_size(w, window, stride, padding, ceil_mode)
+    size = torch.empty((), dtype=dtype).element_size()
+    t_bytes = n * c * (h * w + ho * wo) * size / HBM_BYTES_PER_S * 1e3
+    t_ops = n * c * ho * wo * window * window / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_max_pool(device, check_batch: int = K5_TIMING_BATCH,
+                   timing_batch: int = K5_TIMING_BATCH) -> dict:
+    """K5 (`ops/max_pool.py`) against its plain version on the same card
+    tensors, bit for bit: every pool the port serves at ``check_batch`` in
+    bf16, f32 and int8; ragged C and odd maps at every geometry and three
+    more; an unaligned map and sliced inputs (a batch slice read in place,
+    an H slice and a channel slice copied to ``channels_last``); NaN /
+    +-inf / +-0.0 cases (int8: -128 and 127).  (The serving slices count
+    K5's launches per request.)  On the card also: per pool
+    at ``timing_batch`` (bf16; int8 at the int8 cell's pools), as a CUDA
+    graph: K5, its byte bound, the plain version (int8: the f16 round trip
+    it replaces) and ``F.max_pool2d`` (bf16; no PyTorch call pools int8
+    on the card); and the host time per call of the op, the launcher, the
+    layer's entry, the checked entry and ``F.max_pool2d``."""
+    from objectdetection_ssd_torch.ops import max_pool as k5
+    F = torch.nn.functional
+    on_card = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(SEED + 50)
+    cases = []
+    for dtype in K5_DTYPES:
+        for _, _, chw, geometry in K5_POOLS:
+            cases.append((dtype, (check_batch,) + chw, geometry, "model"))
+        geometries = list(dict.fromkeys(
+            [g for _, _, _, g in K5_POOLS] + list(K5_EXTRA_GEOMETRIES)))
+        for shape in K5_RAGGED + ((4, 64, 19, 19),):
+            for geometry in geometries:
+                cases.append((dtype, shape, geometry, "ragged"))
+                cases.append((dtype, shape, geometry, "specials"))
+        for geometry in geometries[:4]:
+            for layout in ("unaligned", "batch slice", "row slice",
+                           "channel slice"):
+                cases.append((dtype, (3, 64, 9, 11), geometry, layout))
+    for dtype, shape, geometry, kind in cases:
+        x = k5_map(shape, dtype, gen, device, specials=kind == "specials")
+        if kind == "unaligned":
+            x = unaligned_copy(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        elif kind == "batch slice":
+            x = x[1:]
+        elif kind == "row slice":
+            x = x[:, :, 1:]
+        elif kind == "channel slice":
+            x = x[:, 8:]
+        window, stride, padding, ceil_mode = geometry
+        got = k5.max_pool(x, window, stride, padding, ceil_mode)
+        want = k5.max_pool_plain(x, window, stride, padding, ceil_mode)
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"K5 {dtype} {tuple(x.shape)} {geometry} {kind}: "
+                 f"{tuple(got.shape)} {got.dtype}, plain "
+                 f"{tuple(want.shape)} {want.dtype}")
+        bits = K5_DTYPES[dtype]
+        differ = int((got.contiguous().view(bits)
+                      != want.contiguous().view(bits)).sum())
+        if differ:
+            fail(f"K5 {dtype} {tuple(x.shape)} {geometry} {kind}: {differ} "
+                 f"values differ from the plain version's bits")
+        if not got.is_contiguous(memory_format=torch.channels_last):
+            fail(f"K5 {dtype} {tuple(x.shape)}: output not channels_last")
+        del x, got, want
+    if on_card:
+        torch.cuda.empty_cache()
+    out = {"compared": len(cases), "max_abs_err": 0.0}
+    if not on_card:
+        return out
+
+    # Timing at the serving batch, one pool at a time.
+    rows = []
+    for model, pool, chw, geometry in K5_POOLS:
+        dtypes = [torch.bfloat16]
+        if pool in K5_INT8_POOLS:
+            dtypes.append(torch.int8)
+        for dtype in dtypes:
+            shape = (timing_batch,) + chw
+            x = k5_map(shape, dtype, gen, device)
+            window, stride, padding, ceil_mode = geometry
+            bound, by = k5_bound_ms(shape, geometry, dtype)
+            row = {"model": model, "pool": pool, "dtype": str(dtype),
+                   "shape": list(shape), "geometry": list(geometry),
+                   "ms": graph_ms(lambda: k5.max_pool(
+                       x, window, stride, padding, ceil_mode)),
+                   "plain_ms": graph_ms(lambda: k5.max_pool_plain(
+                       x, window, stride, padding, ceil_mode)),
+                   "library_ms": None if dtype == torch.int8 else graph_ms(
+                       lambda: F.max_pool2d(x, window, stride, padding,
+                                            ceil_mode=ceil_mode)),
+                   "bound_ms": bound, "bound_by": by}
+            row["share"] = bound / row["ms"]
+            rows.append(row)
+            del x
+            torch.cuda.empty_cache()
+    out["rows"] = rows
+
+    # Host time per call at the smallest SSD300 map at batch 1, in turns.
+    _, _, chw, geometry = K5_POOLS[4]
+    x = k5_map((1,) + chw, torch.bfloat16, gen, device)
+    window, stride, padding, ceil_mode = geometry
+    pairs = (k5.pair(window), k5.pair(stride), k5.pair(padding), ceil_mode)
+    calls = {"op": lambda: torch.ops.ssd.max_pool(x, *pairs),
+             "launcher": lambda: k5.launch(x, *pairs),
+             "layer_max_pool": lambda: k5.layer_max_pool(x, *pairs),
+             "max_pool": lambda: k5.max_pool(x, window, stride, padding,
+                                             ceil_mode),
+             "F.max_pool2d": lambda: F.max_pool2d(x, window, stride, padding,
+                                                  ceil_mode=ceil_mode)}
+    host = {key: [] for key in calls}
+    for _ in range(2):
+        for key, fn in calls.items():
+            host[key].append(host_ms_per_call(fn, K5_HOST_CALLS))
+    out["host_shape"] = [1] + list(chw)
     out["host_ms"] = {key: min(v) for key, v in host.items()}
     return out
 
@@ -1665,14 +1863,18 @@ def phase_resnet_slice(device, state_dict, batches=SERVE_BATCHES) -> dict:
                                generator=gen, dtype=torch.uint8).to(device)
               for b in batches}
 
-    launches, n_valid, n_suppressed, _, k4 = serve_requests(det, images,
-                                                            "ResNet-34")
+    launches, n_valid, n_suppressed, _, k4, k5 = serve_requests(
+        det, images, "ResNet-34")
     if device.type == "cuda" and launches != len(batches):
         fail(f"K1 launched {launches} times for {len(batches)} ResNet-34 "
              f"requests")
     if device.type == "cuda" and k4 != K4_PER_FORWARD["resnet34"] * len(
             batches):
         fail(f"K4 launched {k4} times for {len(batches)} ResNet-34 "
+             f"requests")
+    if device.type == "cuda" and k5 != K5_PER_FORWARD["resnet34"] * len(
+            batches):
+        fail(f"K5 launched {k5} times for {len(batches)} ResNet-34 "
              f"requests")
 
     # f32: the card's loc/conf against the CPU's.
@@ -1690,7 +1892,7 @@ def phase_resnet_slice(device, state_dict, batches=SERVE_BATCHES) -> dict:
     # postprocess on the card against the CPU's on the card's numbers.
     out = {"launches": launches, "valid": n_valid,
            "suppressed": n_suppressed, "card_vs_cpu_rel": rel, "opt_in": {},
-           "k4": k4}
+           "k4": k4, "k5": k5}
     for name, kw in (("soft_gaussian", {"nms_method": "soft_gaussian"}),
                      ("soft_linear", {"nms_method": "soft_linear"}),
                      ("tta_flip", {"tta_flip": True}),
@@ -2357,20 +2559,21 @@ def phase_int8_slice(device, state_dict, resnet_state_dict,
     det_c = Detector(cfg, state_dict, device=device, quant=chained)
     det_u = Detector(cfg, state_dict, device=device, quant=qtree)
     images = images_of(300, batches)
-    k1, n_valid, n_suppressed, k3_launches, _ = serve_requests(
+    k1, n_valid, n_suppressed, k3_launches, _, k5 = serve_requests(
         det_c, images, "SSD300 int8")
     if cuda and (k3_launches != SSD300_INT8_CONVS * len(batches)
-                 or k1 != len(batches)):
+                 or k1 != len(batches)
+                 or k5 != K5_PER_FORWARD["ssd300"] * len(batches)):
         fail(f"{len(batches)} SSD300 int8 requests launched K3 "
-             f"{k3_launches} times and K1 {k1} times")
+             f"{k3_launches} times, K1 {k1} times and K5 {k5} times")
     x = images[max(batches)]
     with torch.inference_mode():
         same = all(torch.equal(a, b) for a, b in
                    zip(det_c.forward(x), det_u.forward(x)))
     if not same:
         fail("SSD300 int8 chained != unchained")
-    out["ssd300"] = {"k1": k1, "k3": k3_launches, "valid": n_valid,
-                     "suppressed": n_suppressed}
+    out["ssd300"] = {"k1": k1, "k3": k3_launches, "k5": k5,
+                     "valid": n_valid, "suppressed": n_suppressed}
     cfg32 = Config()
     card = Detector(cfg32, state_dict, device=device, quant=chained)
     cpu = Detector(cfg32, state_dict, device="cpu", quant=chained)
@@ -2392,14 +2595,15 @@ def phase_int8_slice(device, state_dict, resnet_state_dict,
         fail("a ResNet-34 scale tree gained chain edges")
     det = Detector(cfg, resnet_state_dict, device=device, quant=rtree)
     images = images_of(RESNET_SIZE, batches)
-    k1, n_valid, n_suppressed, k3_launches, _ = serve_requests(
+    k1, n_valid, n_suppressed, k3_launches, _, k5 = serve_requests(
         det, images, "ResNet-34 int8")
     if cuda and (k3_launches != RESNET_INT8_CALLS * len(batches)
-                 or k1 != len(batches)):
+                 or k1 != len(batches)
+                 or k5 != K5_PER_FORWARD["resnet34"] * len(batches)):
         fail(f"{len(batches)} ResNet-34 int8 requests launched K3 "
-             f"{k3_launches} times and K1 {k1} times")
-    out["resnet34"] = {"k1": k1, "k3": k3_launches, "valid": n_valid,
-                       "suppressed": n_suppressed,
+             f"{k3_launches} times, K1 {k1} times and K5 {k5} times")
+    out["resnet34"] = {"k1": k1, "k3": k3_launches, "k5": k5,
+                       "valid": n_valid, "suppressed": n_suppressed,
                        "convs": quant.count_quantized(rtree)}
     tta = Detector(cfg, resnet_state_dict, device=device, quant=rtree,
                    postprocess_config=dataclasses.replace(cfg.postprocess,
@@ -2974,10 +3178,11 @@ def phase_export(device, state_dict, resnet_state_dict, root: str,
     f32 with flip TTA at ``batch``.  Each call runs two chunks, and a
     reload of the directory once more: its detections equal the live
     `Detector.detect_batch` on the same chunks to JAX's gate, with K1
-    launched once, K3 23 times (int8 SSD300) and K4 23 times (bf16
-    SSD300) or 8 (ResNet-34, two forwards with flip TTA) per chunk.  On
-    the card also: `torch.library.opcheck` of the three ops on CUDA
-    tensors; the int8
+    launched once, K3 23 times (int8 SSD300), K4 23 times (bf16
+    SSD300) or 8 (ResNet-34, two forwards with flip TTA) and K5 5 times
+    (SSD300) or 2 (ResNet-34 with flip TTA) per chunk, one
+    ``ssd.max_pool`` node per pool in each program.  On the card also:
+    `torch.library.opcheck` of the four ops on CUDA tensors; the int8
     and ResNet-34 artifacts moved to the CPU against the card
     (`match_detections`); `MicroBatcher` over `MinimalExportedDetector`
     answering `BATCHER_REQUESTS` concurrent requests with the rows of one
@@ -2993,7 +3198,7 @@ def phase_export(device, state_dict, resnet_state_dict, root: str,
     from objectdetection_ssd_torch.infer.export import (ExportedDetector,
                                                         export_detector)
     from objectdetection_ssd_torch.infer.postprocess import Detections
-    from objectdetection_ssd_torch.ops import bias_relu, int8_conv
+    from objectdetection_ssd_torch.ops import bias_relu, int8_conv, max_pool
 
     on_card = device.type == "cuda"
     gen = torch.Generator().manual_seed(SEED + 30)
@@ -3008,18 +3213,20 @@ def phase_export(device, state_dict, resnet_state_dict, root: str,
     specs = {
         "ssd300_bf16": (Config(model=ModelConfig(compute_dtype="bfloat16")),
                         state_dict, None, batch, ssd_images, 0,
-                        K4_PER_FORWARD["ssd300"]),
+                        K4_PER_FORWARD["ssd300"], K5_PER_FORWARD["ssd300"]),
         "ssd300_int8_latency": (latency, state_dict, qtree, 1,
-                                ssd_images[:2], SSD300_INT8_CONVS, 0),
+                                ssd_images[:2], SSD300_INT8_CONVS, 0,
+                                K5_PER_FORWARD["ssd300"]),
         "resnet34_tta": (Config(model=resnet_config(),
                                 postprocess=PostprocessConfig(
                                     tta_flip=True)),
                          resnet_state_dict, None, batch, r34_images, 0,
-                         2 * K4_PER_FORWARD["resnet34"]),
+                         2 * K4_PER_FORWARD["resnet34"],
+                         2 * K5_PER_FORWARD["resnet34"]),
     }
-    out = {"k1": 0, "k3": 0, "k4": 0, "artifacts": {}}
-    for name, (cfg, sd, tree, size, images, k3_per_chunk,
-               k4_per_chunk) in specs.items():
+    out = {"k1": 0, "k3": 0, "k4": 0, "k5": 0, "artifacts": {}}
+    for name, (cfg, sd, tree, size, images, k3_per_chunk, k4_per_chunk,
+               k5_per_chunk) in specs.items():
         path = os.path.join(root, name)
         t0 = time.perf_counter()
         export_detector(cfg, sd, path, batch_size=size, quant=tree,
@@ -3032,20 +3239,23 @@ def phase_export(device, state_dict, resnet_state_dict, root: str,
         nms_cuda.launches = 0
         int8_conv.launches = 0
         bias_relu.launches = 0
+        max_pool.launches = 0
         got = served(images)
         again = ExportedDetector(path, device=device)(images)
         if on_card:
             torch.cuda.synchronize()
         k1, k3 = nms_cuda.launches, int8_conv.launches
-        k4 = bias_relu.launches
-        if on_card and (k1, k3, k4) != (2 * chunks,
-                                        2 * chunks * k3_per_chunk,
-                                        2 * chunks * k4_per_chunk):
-            fail(f"export {name}: {k1} K1, {k3} K3 and {k4} K4 launches "
-                 f"in {2 * chunks} chunks")
+        k4, k5 = bias_relu.launches, max_pool.launches
+        if on_card and (k1, k3, k4, k5) != (2 * chunks,
+                                            2 * chunks * k3_per_chunk,
+                                            2 * chunks * k4_per_chunk,
+                                            2 * chunks * k5_per_chunk):
+            fail(f"export {name}: {k1} K1, {k3} K3, {k4} K4 and {k5} K5 "
+                 f"launches in {2 * chunks} chunks")
         out["k1"] += k1
         out["k3"] += k3
         out["k4"] += k4
+        out["k5"] += k5
         live = Detector(cfg, sd, device=device, quant=tree)
         want = [live.detect_batch(images[i:i + size])
                 for i in range(0, images.shape[0], size)]
@@ -3059,16 +3269,20 @@ def phase_export(device, state_dict, resnet_state_dict, root: str,
         ops = [str(node.target) for node in served.program.graph.nodes
                if node.op == "call_function"]
         row = {"export_s": export_s, "load_s": load_s, "batch": size,
-               "chunks": 2 * chunks, "k1": k1, "k3": k3, "k4": k4,
+               "chunks": 2 * chunks, "k1": k1, "k3": k3, "k4": k4, "k5": k5,
                "valid": int(got.valid.sum()), "meta": served.meta,
                "ops": len(ops), "op_counts": {
                    key: ops.count(key) for key in (
                        "aten._assert_tensor_metadata.default",
                        "aten.to.dtype", "ssd.nms_keep.default",
-                       "ssd.int8_conv.default", "ssd.bias_relu.default")}}
+                       "ssd.int8_conv.default", "ssd.bias_relu.default",
+                       "ssd.max_pool.default")}}
         if on_card and ops.count("ssd.bias_relu.default") != k4_per_chunk:
             fail(f"export {name}: {ops.count('ssd.bias_relu.default')} "
                  f"ssd.bias_relu nodes, want {k4_per_chunk}")
+        if on_card and ops.count("ssd.max_pool.default") != k5_per_chunk:
+            fail(f"export {name}: {ops.count('ssd.max_pool.default')} "
+                 f"ssd.max_pool nodes, want {k5_per_chunk}")
         if on_card and name != "ssd300_bf16":
             cpu = ExportedDetector(path, device="cpu")(images.cpu())
             row["cpu"] = match_detections(
@@ -3129,6 +3343,13 @@ def phase_export(device, state_dict, resnet_state_dict, root: str,
                                torch.Generator(device=device).manual_seed(
                                    SEED + 31), device)
             torch.library.opcheck(torch.ops.ssd.bias_relu.default, (y, b))
+        for dtype in K5_DTYPES:
+            x = k5_map((2, 64, 9, 11), dtype, torch.Generator(
+                device=device).manual_seed(SEED + 32), device)
+            for window, stride, padding, ceil_mode in dict.fromkeys(
+                    g for _, _, _, g in K5_POOLS):
+                torch.library.opcheck(torch.ops.ssd.max_pool.default, (
+                    x, [window] * 2, [stride] * 2, [padding] * 2, ceil_mode))
     return out
 
 
@@ -5133,6 +5354,7 @@ def main(argv=None) -> int:
     from objectdetection_ssd_torch.ops import bias_relu
     from objectdetection_ssd_torch.ops import dw_cuda
     from objectdetection_ssd_torch.ops import int8_conv
+    from objectdetection_ssd_torch.ops import max_pool
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5145,7 +5367,8 @@ def main(argv=None) -> int:
     # nvcc per source, all started together.
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     sources = {"K1": nms_cuda.SOURCE, "K2": dw_cuda.SOURCE,
-               "K3": int8_conv.SOURCE, "K4": bias_relu.SOURCE}
+               "K3": int8_conv.SOURCE, "K4": bias_relu.SOURCE,
+               "K5": max_pool.SOURCE}
     for path in args.k1_baseline:
         sources[f"K1 baseline {path.stem}"] = path.resolve()
     for path in args.k3_baseline:
@@ -5156,6 +5379,7 @@ def main(argv=None) -> int:
     dw_cuda.build()
     int8_conv.build()
     bias_relu.build()
+    max_pool.build()
     build_s = time.perf_counter() - t0
     k1_baselines = {path.stem: k1_library_launcher(path.resolve())
                     for path in args.k1_baseline}
@@ -5245,12 +5469,47 @@ def main(argv=None) -> int:
               f"{k} {v * 1e3:.2f}" for k, v in br["host_ms"].items())
           + f"; the phase took {time.perf_counter() - t_phase:.1f} s")
 
+    t_phase = time.perf_counter()
+    mp = phase_max_pool(device)
+    print(f"max-pool kernel: K5 bit-equal to its plain version (F.max_pool2d"
+          f", int8 through f16) in {mp['compared']} comparisons: every pool "
+          f"the port serves (SSD300 pools 1-5, the ResNet-34 stem) at batch "
+          f"{K5_TIMING_BATCH} in bf16, f32 and int8; ragged C "
+          f"{[s[1] for s in K5_RAGGED]} and odd maps at every geometry and "
+          f"{len(K5_EXTRA_GEOMETRIES)} more; an unaligned map, a batch, a row "
+          f"and a channel slice; NaN / +-inf / +-0.0 (int8: -128, 127) "
+          f"(max_abs_err {mp['max_abs_err']})")
+    for r in mp["rows"]:
+        lib = ("null (no PyTorch call pools int8 on the card)"
+               if r["library_ms"] is None
+               else f"{r['library_ms'] * 1e3:.1f} us")
+        print(f"max-pool timing: K5 {r['model']} {r['pool']} {r['shape']} "
+              f"{r['geometry']} {r['dtype']} ({smi}): {r['ms'] * 1e3:.1f} us "
+              f"(CUDA graph), bound {r['bound_ms'] * 1e3:.1f} us by "
+              f"{r['bound_by']} ({r['share']:.3f} of it); plain "
+              f"{r['plain_ms'] * 1e3:.1f} us; F.max_pool2d {lib}")
+    k5_bf16 = [r for r in mp["rows"] if r["model"] == "ssd300"
+               and r["dtype"] == str(torch.bfloat16)]
+    k5_int8 = [r for r in mp["rows"] if r["model"] == "ssd300"
+               and (r["dtype"] == str(torch.int8) or r["pool"] == "pool4")]
+    for label, rows in (("bf16", k5_bf16), ("int8 (pool4 bf16)", k5_int8)):
+        print(f"max-pool timing: the {len(rows)} K5 launches of one "
+              f"batch-{K5_TIMING_BATCH} {label} SSD300 forward ({smi}): "
+              f"{sum(r['ms'] for r in rows):.3f} ms, bound "
+              f"{sum(r['bound_ms'] for r in rows):.3f} ms, plain "
+              f"{sum(r['plain_ms'] for r in rows):.3f} ms")
+    print(f"max-pool host: {mp['host_shape']} bf16 3x3/s1/p1, host us per "
+          f"call, best of 2 turns of {K5_HOST_CALLS} calls ({smi}): "
+          + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in mp["host_ms"].items())
+          + f"; the phase took {time.perf_counter() - t_phase:.1f} s")
+
     sl = phase_slice(device, sd)
     if sl["launches"] < len(SERVE_BATCHES):
         fail(f"K1 launched {sl['launches']} times on the main path")
     print(f"slice: detect_batch f32 on {list(SERVE_BATCHES)}: valid "
           f"{sl['valid']}, suppressed {sl['suppressed']}, K1 launches "
-          f"{sl['launches']}, K4 launches {sl['k4']}, kernel == plain-NMS "
+          f"{sl['launches']}, K4 launches {sl['k4']}, K5 launches "
+          f"{sl['k5']}, kernel == plain-NMS "
           f"detections, card vs CPU loc/conf {sl['card_vs_cpu_rel']:.3e} of "
           f"scale")
 
@@ -5395,7 +5654,7 @@ def main(argv=None) -> int:
     print(f"resnet34 slice: detect_batch bf16 {RESNET_SIZE} px on "
           f"{list(SERVE_BATCHES)}: valid {rs['valid']}, suppressed "
           f"{rs['suppressed']}, K1 launches {rs['launches']}, K4 launches "
-          f"{rs['k4']}, kernel == "
+          f"{rs['k4']}, K5 launches {rs['k5']}, kernel == "
           f"plain-NMS detections; f32 card vs CPU loc/conf "
           f"{rs['card_vs_cpu_rel']:.3e} of scale (non-trivial BN "
           f"statistics); card == CPU detections (atol {SOFT_NMS_ATOL:.0e}) "
@@ -5493,14 +5752,16 @@ def main(argv=None) -> int:
           f"{INT8_CALIB_IMAGES} images, {SSD300_INT8_CONVS} convs, chained "
           f"bf16 detect_batch on {list(INT8_SERVE_BATCHES)}: valid "
           f"{a['valid']}, suppressed {a['suppressed']}, K3 launches "
-          f"{a['k3']} ({SSD300_INT8_CONVS} per forward), K1 {a['k1']}, "
+          f"{a['k3']} ({SSD300_INT8_CONVS} per forward), K1 {a['k1']}, K5 "
+          f"{a['k5']} (int8 pools 1-3 and 5, bf16 pool4), "
           f"kernel == plain-NMS detections, chained == unchained bit for "
           f"bit; f32 int8 card vs CPU loc/conf {a['card_vs_cpu_rel']:.3e} "
           f"of scale")
     print(f"int8 slice: ResNet-34 {b['convs']} convs, unchained bf16 "
           f"detect_batch on {list(INT8_SERVE_BATCHES)}: valid {b['valid']}, "
           f"suppressed {b['suppressed']}, K3 launches {b['k3']} "
-          f"({RESNET_INT8_CALLS} per forward), K1 {b['k1']}; flip TTA K3 "
+          f"({RESNET_INT8_CALLS} per forward), K1 {b['k1']}, K5 {b['k5']}; "
+          f"flip TTA K3 "
           f"{b['tta_k3']}, valid {b['tta_valid']}; f32 int8 card vs CPU "
           f"{b['card_vs_cpu_rel']:.3e} of scale, {b['noise_ratio']:.3f} of "
           f"the CPU's int8-vs-float difference (limit "
@@ -5581,7 +5842,8 @@ def main(argv=None) -> int:
               f"{m['tta_flip']}): export {r['export_s']:.2f} s, load "
               f"{r['load_s']:.2f} s; {r['chunks']} chunks (two, and a "
               f"reload) == live detect_batch (JAX's gate), K1 {r['k1']}, "
-              f"K3 {r['k3']}, K4 {r['k4']}, valid {r['valid']}{cpu}; the "
+              f"K3 {r['k3']}, K4 {r['k4']}, K5 {r['k5']}, valid "
+              f"{r['valid']}{cpu}; the "
               f"program: "
               f"{r['ops']} operator calls, of them " + ", ".join(
                   f"{v} {k}" for k, v in r["op_counts"].items()))
@@ -5597,14 +5859,17 @@ def main(argv=None) -> int:
     print(f"export: MicroBatcher over MinimalExportedDetector answered "
           f"{BATCHER_REQUESTS} concurrent requests in {ex['batcher_calls']} "
           f"program calls with the rows of one batched call; opcheck "
-          f"passed for ssd::nms_keep, ssd::int8_conv and ssd::bias_relu on "
-          f"CUDA tensors; "
+          f"passed for ssd::nms_keep, ssd::int8_conv, ssd::bias_relu and "
+          f"ssd::max_pool on CUDA tensors; "
           f"the phase took {time.perf_counter() - t_phase:.1f} s")
     k1_launches += ex["k1"]
     k3_launches += ex["k3"]
     # The serving requests of SSD300 and ResNet-34 and the artifacts'
     # chunks.
     k4_launches = sl["k4"] + rs["k4"] + ex["k4"]
+    # The same and the int8 serving requests of both families.
+    k5_launches = (sl["k5"] + rs["k5"] + ex["k5"] + isl["ssd300"]["k5"]
+                   + isl["resnet34"]["k5"])
 
     # The JAX package's remaining public names, before any process group.
     ap = phase_api(device)
@@ -5934,6 +6199,31 @@ def main(argv=None) -> int:
             "model", "conv", "shape", "ms", "plain_ms", "pair_ms",
             "bound_ms", "bound_by", "share", "conv_ms", "cudnn_relu_ms")}
             for r in br["rows"]],
+    }, {
+        "name": "max_pool",
+        "route": "cuda",
+        "source": "objectdetection_ssd_torch/csrc/max_pool.cu",
+        "replaces": "none: the max pools of objectdetection_ssd_tpu/models/"
+                    "layers.py:249 (max_pool, lax.reduce_window), which XLA "
+                    "lowers to one pass",
+        "launches": k5_launches,
+        "max_abs_err": mp["max_abs_err"],
+        # The 5 launches of one batch-256 bf16 SSD300 forward, summed.
+        "ms": sum(r["ms"] for r in k5_bf16),
+        "plain_ms": sum(r["plain_ms"] for r in k5_bf16),
+        "bound_ms": sum(r["bound_ms"] for r in k5_bf16),
+        "bound_by": "bytes",
+        # F.max_pool2d (which runs max_pool2d_with_indices on the card) on
+        # the same inputs.
+        "library_ms": sum(r["library_ms"] for r in k5_bf16),
+        "int8_ms": sum(r["ms"] for r in k5_int8),
+        "int8_plain_ms": sum(r["plain_ms"] for r in k5_int8),
+        "int8_bound_ms": sum(r["bound_ms"] for r in k5_int8),
+        "host_ms": mp["host_ms"],
+        "per_shape": [{key: r[key] for key in (
+            "model", "pool", "dtype", "shape", "geometry", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "share")}
+            for r in mp["rows"]],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

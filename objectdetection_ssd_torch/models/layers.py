@@ -7,7 +7,8 @@ card); what this module adds is the flax initialisers, flax's ``dtype=``
 casts (each conv computes in its input's dtype, casting its weight and
 bias at use), the routing of a conv's filter gradient through kernel K2,
 the int8 and straight-through (QAT) branches of a quantized conv (JAX
-`Int8Conv`, kernel K3), int8 max pooling, the L2Norm arithmetic, flax's
+`Int8Conv`, kernel K3), the route of max pooling through kernel K5
+(int8 pooled natively), the L2Norm arithmetic, flax's
 BatchNorm and Dropout semantics (the ResNet-34 family) and the NHWC head
 flatten.
 
@@ -34,6 +35,7 @@ from torch.distributed.tensor import DTensor
 
 from objectdetection_ssd_torch.ops import bias_relu as k4
 from objectdetection_ssd_torch.ops import int8_conv as k3
+from objectdetection_ssd_torch.ops import max_pool as k5
 from objectdetection_ssd_torch.ops.dw_cuda import conv3x3p1
 from objectdetection_ssd_torch.parallel.collectives import all_reduce_sum
 
@@ -278,16 +280,29 @@ class TorchConv(nn.Conv2d):
                 nn.init.constant_(self.bias, self.bias_init)
 
 
-def max_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0,
+def pools_on_k5(x: torch.Tensor) -> bool:
+    """Whether `max_pool` runs on kernel K5: a CUDA input with nothing for
+    autograd to record (``inference_mode``, ``no_grad``, or an input that
+    does not require grad).  The train step keeps ``F.max_pool2d``, whose
+    backward reads the indices it saves."""
+    return x.is_cuda and not (torch.is_grad_enabled() and x.requires_grad)
+
+
+def max_pool(x: torch.Tensor, window, stride, padding=0,
              ceil_mode: bool = False, part=None) -> torch.Tensor:
     """Max pool with torch semantics: -inf padding, and ``ceil_mode``
     extends the grid at the bottom/right (reference pool3, `Model.py:137`).
-    The JAX counterpart pads explicitly to get the same windows.
+    The JAX counterpart pads explicitly to get the same windows.  ``window``,
+    ``stride`` and ``padding`` are ints, or (H, W) pairs without a spatial
+    ``part``.
 
-    An int8 input (the requant-chained graph; the max commutes with the
-    monotone quantization) is pooled through f16, which holds every value
-    in [-127, 127] exactly: CUDA's max pool takes no int8.  Padding never
-    wins, as the JAX pool's -128 padding does not.
+    On the card's inference forward (`pools_on_k5`) kernel K5 pools the
+    ``channels_last`` map without writing indices (`ops/max_pool.py`), and
+    an int8 input (the requant-chained graph; the max commutes with the
+    monotone quantization) is pooled as int8.  Everywhere else the plain
+    version runs: ``F.max_pool2d``, an int8 input through f16, which holds
+    every value in [-127, 127] exactly.  Padding never wins, as the JAX
+    pool's -128 padding does not.
 
     Under spatial parallelism (``part``) the pool reads the input rows its
     output rows need, ``-inf`` (int8: -128) outside the map, and pools
@@ -299,11 +314,10 @@ def max_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0,
         y = max_pool(ext, (window, window), (stride, stride), (0, padding),
                      ceil_mode)
         return part.narrow_rows(y, 0, rows)
-    if x.dtype == torch.int8:
-        return F.max_pool2d(x.half(), window, stride, padding=padding,
-                            ceil_mode=ceil_mode).to(torch.int8)
-    return F.max_pool2d(x, window, stride, padding=padding,
-                        ceil_mode=ceil_mode)
+    if pools_on_k5(x):
+        return k5.layer_max_pool(x, k5.pair(window), k5.pair(stride),
+                                 k5.pair(padding), ceil_mode)
+    return k5.max_pool_plain(x, window, stride, padding, ceil_mode)
 
 
 class L2Norm(nn.Module):
